@@ -43,6 +43,10 @@ def pytest_configure(config):
         "slow: deep-coverage test skipped by default (opt in with "
         "--runslow or VKR_SLOW=1); every slow test has a fast sibling "
         "covering the same code path at lower depth")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch/CUDA port's "
+        "kernels); skips where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,117 @@
+"""The port's CUDA raster kernels against their plain PyTorch versions, on
+the card, bit for bit (depths and ids).
+
+The plain versions are held against the JAX package's Pallas kernels on
+the CPU (tests/test_torch_raster.py); this file closes the chain on the
+GPU.  It imports no JAX, so it runs on a machine without it; there the
+suite's conftest (which imports JAX) is left out:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Without a CUDA device every test skips."""
+
+import numpy as np
+import pytest
+import torch
+
+from vk_renderer_tpu_torch.ops import binning, raster
+from vk_renderer_tpu_torch.ops import raster_kernels as rk
+from vk_renderer_tpu_torch.ops import setup
+
+from raster_streams import (COLS, H, N_TILES, R, SENT, TH, TW, W,
+                            clip_scene, pad_records, synthetic_stream)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+def _scene_stream():
+    """Records of a random 40-triangle scene (some w-crossing) over the
+    2 x 2 tile grid, built by the port's own setup, binning and records
+    (each held exactly against the JAX package on the CPU)."""
+    clip, tris = clip_scene(7, 40, w_cross=3)
+    st = setup.triangle_setup(
+        tuple(torch.from_numpy(clip[:, c]) for c in range(4)),
+        tuple(torch.from_numpy(tris[:, c]) for c in range(3)),
+        torch.ones(40, dtype=torch.bool), W, H, cull=setup.CULL_NONE)
+    (plan,) = binning.bin_buckets_packed(
+        st["bbox"], st["valid"], ((0, 40),), W, H, tile_w=TW, tile_h=TH,
+        caps=(64,), rec_caps=(R,), max_span=4, big_cap=8, edge=st["edge"],
+        anchor=st["anchor"])
+    assert int(plan["overflow"]) == 0
+    rec = rk.build_records(raster.pad_setup(st), st["bbox"], plan["rec_tri"],
+                           plan["rec_tile"], COLS, TW, TH)
+    return (pad_records(rec.numpy()), plan["rec_start"].numpy(),
+            plan["counts"].reshape(-1).numpy())
+
+
+@pytest.fixture(params=["scene", "synthetic"])
+def stream(request, dev):
+    rec, start, counts = (_scene_stream() if request.param == "scene"
+                          else synthetic_stream())
+    return [torch.from_numpy(np.asarray(x)).to(dev)
+            for x in (rec, start, counts)]
+
+
+def _tile_planes(dev, seed, values):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.choice(np.asarray(values, np.float32),
+                                       size=(N_TILES, TH, TW))).to(dev)
+
+
+def _same(kernel_out, plain_out):
+    (kd, ki), (pd, pi) = kernel_out, plain_out
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi), f"{int((ki != pi).sum())} ids differ"
+    assert torch.equal(kd, pd), float((kd - pd).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peel", [False, True], ids=["init", "floor"])
+def test_depth_kernel_matches_plain(stream, dev, peel):
+    """A partly seeded z-buffer (init depth and id), and a strict peel
+    floor (z > floor, with 2.0 blanking a pixel)."""
+    init_d = _tile_planes(dev, 1, [1.0, 1.0, 0.35])
+    init_i = torch.where(init_d < 1.0, 59, SENT).to(torch.int32)
+    floor = _tile_planes(dev, 2, [-1.0, 0.15, 0.3, 2.0]) if peel else None
+    before = rk.rasterize_depth_grid.launches
+    args = (*stream, init_d, init_i, floor)
+    _same(rk.rasterize_depth_grid(*args, tile_h=TH),
+          rk.rasterize_depth_grid_plain(*args, tile_h=TH))
+    assert rk.rasterize_depth_grid.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_layers", [1, 3, 7, 10, 16])
+@pytest.mark.parametrize("peel", [False, True], ids=["bound", "floor"])
+def test_kbuffer_kernel_matches_plain(stream, dev, k_layers, peel):
+    """Every depth of the layer stack the masked pass asks for (10 in round
+    0, 6 + the probe in the tail), the kernel's limit (16), a bound
+    (z <= bound) and a floor (z > floor)."""
+    bound = _tile_planes(dev, 3, [0.65, 1.0])
+    floor = _tile_planes(dev, 4, [-1.0, 0.15, 0.3, 2.0]) if peel else None
+    before = rk.rasterize_layers_grid.launches
+    args = (*stream, bound, floor, SENT, k_layers)
+    _same(rk.rasterize_layers_grid(*args, tile_h=TH),
+          rk.rasterize_layers_grid_plain(*args, tile_h=TH))
+    assert rk.rasterize_layers_grid.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_bad_arguments(dev):
+    rec, start, counts = (torch.from_numpy(np.asarray(x)).to(dev)
+                          for x in synthetic_stream())
+    bound = torch.ones((N_TILES, TH, TW), device=dev)
+    with pytest.raises(ValueError, match="k_layers"):
+        rk.rasterize_layers_grid(rec, start, counts, bound, None, SENT, 17,
+                                 tile_h=TH)
+    with pytest.raises(ValueError, match="on cpu"):
+        rk.rasterize_layers_grid(rec, start.cpu(), counts, bound, None, SENT,
+                                 2, tile_h=TH)
+    with pytest.raises(TypeError):
+        rk.rasterize_depth_grid(rec, start, counts, bound,
+                                bound.to(torch.int64), tile_h=TH)

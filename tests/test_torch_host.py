@@ -1,0 +1,193 @@
+"""Port host side: PNG decoding, loaders and the scene bridge, against the
+JAX package's loaders (PIL-decoded) on the same files.
+
+Every comparison here is exact: the loaders are NumPy code in both
+packages, and the device arrays are the host arrays moved."""
+
+import glob
+import io
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+FIXTURE = os.path.join(ROOT, "tests", "fixtures", "textured_box",
+                       "scene.gltf")
+REPLICA_GLB = os.path.join(ROOT, "assets", "sponza_replica", "Sponza.glb")
+REPLICA_KTX = os.path.join(ROOT, "assets", "sponza_replica",
+                           "pisa_cube.ktx")
+
+
+def _pil_rgba(data: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+@pytest.mark.parametrize("path", sorted(glob.glob(os.path.join(
+    ROOT, "tests", "fixtures", "textured_box", "*.png"))),
+    ids=os.path.basename)
+def test_png_decoder_matches_pil_on_fixture(path):
+    from vk_renderer_tpu_torch.utils.image import decode_png
+    with open(path, "rb") as f:
+        data = f.read()
+    np.testing.assert_array_equal(decode_png(data), _pil_rgba(data))
+
+
+def test_png_decoder_matches_pil_on_replica_texture():
+    """One of the replica GLB's embedded 512^2 RGBA PNGs (Paeth-heavy)."""
+    from vk_renderer_tpu_torch.scene.gltf import GltfAsset
+    asset = GltfAsset.load(REPLICA_GLB)
+    sizes = []
+    for i, img in enumerate(asset.json["images"]):
+        bv = asset.json["bufferViews"][img["bufferView"]]
+        sizes.append((bv["byteLength"], i))
+    idx = max(sizes)[1]
+    img = asset.json["images"][idx]
+    bv = asset.json["bufferViews"][img["bufferView"]]
+    start = bv.get("byteOffset", 0)
+    raw = bytes(asset.buffers[bv["buffer"]][start:start + bv["byteLength"]])
+    got = asset.decode_image(idx)
+    assert got.shape[2] == 4 and got.shape[0] >= 256
+    np.testing.assert_array_equal(got, _pil_rgba(raw))
+
+
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "P"])
+def test_png_decoder_color_types(mode, tmp_path):
+    """Gray, gray+alpha, RGB and palette PNGs (every 8-bit color type)
+    decode to the RGBA PIL gives."""
+    from vk_renderer_tpu_torch.utils.image import load_png
+    rng = np.random.default_rng(3)
+    rgba = rng.integers(0, 256, size=(9, 13, 4), dtype=np.uint8)
+    img = Image.fromarray(rgba, "RGBA").convert(mode)
+    path = tmp_path / f"img_{mode}.png"
+    img.save(path)
+    np.testing.assert_array_equal(load_png(str(path)),
+                                  np.asarray(Image.open(path)
+                                             .convert("RGBA")))
+
+
+def test_png_roundtrip(tmp_path):
+    from vk_renderer_tpu_torch.utils.image import load_png, save_png
+    rng = np.random.default_rng(1)
+    img = rng.integers(0, 256, size=(7, 11, 3), dtype=np.uint8)
+    path = tmp_path / "rt.png"
+    save_png(str(path), img)
+    np.testing.assert_array_equal(np.asarray(Image.open(path)), img)
+    np.testing.assert_array_equal(load_png(str(path))[..., :3], img)
+
+
+def _heap_words(texels):
+    """JAX host heap (4 words per texel, corner 0 = the texel) -> one
+    word per texel."""
+    return np.asarray(texels).reshape(-1, 4)[:, 0]
+
+
+def _assert_host_scenes_equal(port, ref):
+    for name in ("positions", "normals", "uvs", "colors", "vert_obj",
+                 "tris", "tri_material", "obj_world", "obj_bounds",
+                 "mat_color_factors", "mat_metal_rough", "mat_tex_ids"):
+        np.testing.assert_array_equal(getattr(port, name),
+                                      getattr(ref, name), err_msg=name)
+    for name in ("n_opaque", "n_masked", "n_transparent",
+                 "n_masked_raster"):
+        assert getattr(port, name) == getattr(ref, name), name
+    pt, rt = port.textures, ref.textures
+    for name in ("mip_offsets", "mip_sizes", "n_mips", "srgb_flags",
+                 "sampler_modes"):
+        np.testing.assert_array_equal(getattr(pt, name), getattr(rt, name),
+                                      err_msg=name)
+    np.testing.assert_array_equal(pt.texels, _heap_words(rt.texels))
+
+
+def test_gltf_fixture_loads_like_jax_package():
+    from vk_renderer_tpu.scene.assembly import SceneBuilder as RefBuilder
+    from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
+    a = SceneBuilder()
+    a.load_gltf(FIXTURE, "fixture")
+    b = RefBuilder()
+    b.load_gltf(FIXTURE, "fixture")
+    port, ref = a.build(), b.build()
+    assert port.n_masked > 0          # the fixture's MASK material
+    _assert_host_scenes_equal(port, ref)
+
+
+def test_ktx_cubemap_loads_like_jax_package():
+    from vk_renderer_tpu.scene import ktx as ref_ktx
+    from vk_renderer_tpu_torch.scene import ktx
+    np.testing.assert_array_equal(ktx.load_cubemap(REPLICA_KTX),
+                                  ref_ktx.load_cubemap(REPLICA_KTX))
+
+
+def _cube_host():
+    from vk_renderer_tpu.scene import procedural
+    b = procedural.build_cube_scene()
+    b.cubemap = procedural.make_sky_cubemap(16)
+    return b.build()
+
+
+def _fixture_host():
+    from vk_renderer_tpu.scene import procedural
+    from vk_renderer_tpu.scene.assembly import SceneBuilder
+    b = SceneBuilder()
+    b.load_gltf(FIXTURE, "fixture")
+    b.cubemap = procedural.make_sky_cubemap(8)
+    return b.build()
+
+
+@pytest.mark.parametrize("make", [_cube_host, _fixture_host],
+                         ids=["cube", "gltf_fixture"])
+def test_scene_bridge_matches_device_put(make):
+    """scene_to_torch of a JAX-built host scene holds the same values as
+    the JAX package's device_put, array by array (the JAX heap and
+    cubemap quad interleaves undone)."""
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    host = make()
+    ref = host.device_put()
+    got = scene_to_torch(host, "cpu")
+
+    def same(a, b, name):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                      err_msg=name)
+
+    for name in ("positions", "normals", "uvs", "tris"):
+        for a, b in zip(getattr(ref, name), getattr(got, name)):
+            same(a, b, name)
+    assert (ref.colors is None) == (got.colors is None)
+    if ref.colors is not None:
+        for a, b in zip(ref.colors, got.colors):
+            same(a, b, "colors")
+    for name in ("vert_obj", "tri_material", "obj_world", "obj_bounds",
+                 "mat_color_factors", "mat_metal_rough", "mat_tex_ids"):
+        same(getattr(ref, name), getattr(got, name), name)
+    for name in ("n_opaque", "n_masked", "n_transparent",
+                 "n_masked_raster"):
+        assert getattr(ref, name) == getattr(got, name)
+    rt, gt = ref.textures, got.textures
+    same(np.asarray(rt.texels)[:, 0].view(np.int32), gt.texels, "texels")
+    for name in ("mip_offsets", "mip_sizes", "n_mips", "srgb_flags",
+                 "sampler_modes"):
+        same(getattr(rt, name), getattr(gt, name), name)
+    f = got.cubemap.shape[1]
+    same(np.asarray(ref.cubemap)[:, 0].reshape(6, f, f), got.cubemap,
+         "cubemap")
+    assert got.positions[0].dtype == torch.float32
+    assert got.tris[0].dtype == torch.int32
+
+
+def test_port_imports_no_jax():
+    """The port never imports JAX (it must run where JAX is absent)."""
+    code = ("import sys, vk_renderer_tpu_torch.graph.driver, "
+            "vk_renderer_tpu_torch.ops.raster_kernels, "
+            "vk_renderer_tpu_torch.scene.assembly; "
+            "print(any(m == 'jax' or m.startswith('jax.') "
+            "for m in sys.modules))")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.abspath(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -1,0 +1,291 @@
+"""Texture sampling (SURVEY.md F4) over the flat texture heap.
+
+Port of vk_renderer_tpu/ops/texture.py for the samplers the frame uses:
+- glTF scene textures: ``_defaultSamplerLinear`` — linear mag/min, linear
+  mipmap mode, REPEAT wrap, full LOD range (vk_engine_init.cpp:343-344;
+  the bindless table always binds the default sampler, vk_loader.cpp:320),
+- shadow map: linear, CLAMP_TO_BORDER with opaque-white border
+  (vk_engine_init.cpp:392-394) over the 16-bit pair-packed cascades,
+- skybox cubemap: linear, per-face clamp-to-edge, RGB9E5 texels.
+
+LOD follows the Vulkan spec's isotropic approximation
+``lambda = log2(max(|dUV/dx|, |dUV/dy|))`` in level-0 texel units, then a
+trilinear blend between the two bracketing mips.
+
+The heap is one i32 word per texel (the JAX package's quad interleave,
+ShadowRows and quad-row cubemap are TPU gather-cost layouts of the same
+words: every bilinear here gathers its four corners directly, with the
+same REPEAT / clamp arithmetic, so the sampled values are identical).
+Scenes with custom glTF samplers are not supported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..scene.types import MAX_MIPS
+
+
+def _unpack_rgba8(packed, srgb, channels):
+    """i32 packed RGBA8 -> requested channel planes in shading space
+    (per-texel sRGB decode before filtering for RGB of sRGB textures,
+    exactly like R8G8B8A8_SRGB sampling hardware)."""
+    out = []
+    for c in channels:
+        v = ((packed >> (8 * c)) & 0xFF).to(torch.float32) * (1.0 / 255.0)
+        if c < 3:
+            lin = torch.where(v <= 0.04045, v / 12.92,
+                              torch.pow((v + 0.055) / 1.055, 2.4))
+            v = torch.where(srgb, lin, v)
+        out.append(v)
+    return out
+
+
+def _bilinear_at(texels, off, w, h, u, v, srgb, channels):
+    """Bilinear fetch given an explicit (offset, w, h) descriptor: the
+    four REPEAT-wrapped corners (self, x+1, y+1, both) of the base texel.
+    Returns a tuple of planes for the requested channels."""
+    x = u * w.to(torch.float32) - 0.5
+    y = v * h.to(torch.float32) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    x1i = torch.remainder(x0i + 1, w)
+    y1i = torch.remainder(y0i + 1, h)
+    base = off.long()
+    row0 = base + (y0i * w).long()
+    row1 = base + (y1i * w).long()
+    p00 = texels[row0 + x0i.long()]
+    p10 = texels[row0 + x1i.long()]
+    p01 = texels[row1 + x0i.long()]
+    p11 = texels[row1 + x1i.long()]
+
+    out = []
+    for (t00, t10, t01, t11) in zip(_unpack_rgba8(p00, srgb, channels),
+                                    _unpack_rgba8(p10, srgb, channels),
+                                    _unpack_rgba8(p01, srgb, channels),
+                                    _unpack_rgba8(p11, srgb, channels)):
+        top = t00 + (t10 - t00) * fx
+        bot = t01 + (t11 - t01) * fx
+        out.append(top + (bot - top) * fy)
+    return tuple(out)
+
+
+def _meta_take(textures, tex_id):
+    """Per-texture (w0, h0, max_level, srgb, w0i, h0i, base_off) for each
+    pixel's texture id."""
+    tid = tex_id.long()
+    w0i = textures.mip_sizes[:, 0, 0][tid]
+    h0i = textures.mip_sizes[:, 0, 1][tid]
+    lvl = (textures.n_mips - 1)[tid]
+    srgb = textures.srgb_flags[tid] > 0
+    base = textures.mip_offsets[:, 0][tid]
+    return (w0i.to(torch.float32), h0i.to(torch.float32),
+            lvl.to(torch.float32), srgb, w0i, h0i, base)
+
+
+def _desc_from_meta(base, w0i, h0i, level):
+    """Mip descriptor (offset, w, h) computed from the level-0 descriptor:
+    the heap lays mips contiguously (scene/textures.py build) with sizes
+    ``max(x >> m, 1)``, so
+        off(l) = base + sum_{m<l} max(w0>>m,1) * max(h0>>m,1)
+    ``level`` must already be clipped to max_level."""
+    acc = torch.zeros_like(base)
+    for m in range(MAX_MIPS - 1):
+        wm = torch.clamp(w0i >> m, min=1)
+        hm = torch.clamp(h0i >> m, min=1)
+        acc = acc + torch.where(level > m, wm * hm, 0)
+    w = torch.clamp(w0i >> level, min=1)
+    h = torch.clamp(h0i >> level, min=1)
+    return base + acc, w, h
+
+
+def _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy):
+    """Vulkan isotropic LOD from planar UV derivatives."""
+    rho = torch.maximum(
+        torch.sqrt((dudx * w0) ** 2 + (dvdx * h0) ** 2),
+        torch.sqrt((dudy * w0) ** 2 + (dvdy * h0) ** 2))
+    lam = torch.log2(torch.clamp(rho, min=1e-12))
+    return torch.minimum(torch.clamp(lam, min=0.0), max_level)
+
+
+def compute_lod(textures, tex_id, dudx, dvdx, dudy, dvdy):
+    """Vulkan isotropic LOD from planar UV derivatives (test entry; the
+    sampling path uses _meta_take + _lod_from_meta).  Returns
+    (lod, max_level)."""
+    w0, h0, max_level = _meta_take(textures, tex_id)[:3]
+    return _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy), \
+        max_level
+
+
+def sample_trilinear(textures, tex_id, u, v, dudx, dvdx, dudy, dvdy,
+                     channels=(0, 1, 2, 3)):
+    """Full trilinear sample with the default sampler.  All per-pixel args
+    planar (any matching shape).  Returns a tuple of planes for the
+    requested channels."""
+    if textures.has_custom_samplers:
+        raise NotImplementedError(
+            "custom glTF samplers are not ported yet (the JAX package's "
+            "texture._sample_general)")
+    w0, h0, max_level, srgb, w0b, h0b, base = _meta_take(textures, tex_id)
+    lam = _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy)
+    l0 = torch.floor(lam).to(torch.int32)
+    l1 = torch.minimum(l0 + 1, max_level.to(torch.int32))
+    frac = lam - l0.to(torch.float32)
+
+    off0, w0i, h0i = _desc_from_meta(base, w0b, h0b, l0)
+    c0 = _bilinear_at(textures.texels, off0, w0i, h0i, u, v, srgb, channels)
+    # level l0+1's descriptor follows arithmetically from l0's (mips are
+    # contiguous, sizes halve with a clamp at 1); at the chain end
+    # (l1 == l0) the descriptor is reused unchanged
+    deeper = l1 > l0
+    off1 = torch.where(deeper, off0 + w0i * h0i, off0)
+    w1i = torch.where(deeper, torch.clamp(w0i >> 1, min=1), w0i)
+    h1i = torch.where(deeper, torch.clamp(h0i >> 1, min=1), h0i)
+    c1 = _bilinear_at(textures.texels, off1, w1i, h1i, u, v, srgb, channels)
+    return tuple(a + (b - a) * frac for a, b in zip(c0, c1))
+
+
+# ----------------------------------------------------------------------------
+# shadow map: 2D array, linear filter, clamp-to-border white
+# ----------------------------------------------------------------------------
+
+SHADOW_Q = 65535.0   # 16-bit fixed-point depth quantization (see pack)
+
+
+def pack_shadow_maps(maps: torch.Tensor) -> torch.Tensor:
+    """f32[L, S, S] depth -> pair-packed i32[L, S, S]:
+    ``word[y, x] = q16(d[y, x]) | q16(d[y, min(x+1, S-1)]) << 16``
+    (texture.py:458-482, bit for bit).  16-bit fixed point quantizes depth
+    to 1.5e-5 — 33x finer than the 5e-4 compare bias (mesh_pbr.frag:38);
+    a documented deviation from the reference's D32."""
+    q = torch.round(torch.clamp(maps, 0.0, 1.0) * SHADOW_Q).to(torch.int32)
+    q_next = torch.cat([q[..., 1:], q[..., -1:]], dim=-1)
+    return q | (q_next << 16)
+
+
+def quantize_shadow(maps: torch.Tensor) -> torch.Tensor:
+    """The depth value the packed representation reproduces."""
+    return torch.round(torch.clamp(maps, 0.0, 1.0) * SHADOW_Q) / SHADOW_Q
+
+
+def _index(x, size):
+    """Clamped integer texel index (NaN coordinates land on texel 0; the
+    in-range masks already send them to the border value)."""
+    return torch.nan_to_num(torch.clamp(x, 0, size - 1), nan=0.0).long()
+
+
+def sample_shadow_batch(shadow_packed: torch.Tensor, us: torch.Tensor,
+                        vs: torch.Tensor, layer: torch.Tensor):
+    """Batched bilinear shadow taps over pair-packed i32[L, S, S] maps:
+    us/vs [K, ...] (K independent filter taps), layer [...].  Border depth
+    1.0 outside [0,1]^2 (opaque-white border).  Two flat gathers per tap
+    (the x-pair rides one packed word)."""
+    size = shadow_packed.shape[-1]
+    x = us * float(size) - 0.5
+    y = vs * float(size) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+
+    x0in = (x0 >= 0) & (x0 < size)
+    x1in = (x0 + 1 >= 0) & (x0 + 1 < size)
+    y0in = (y0 >= 0) & (y0 < size)
+    y1in = (y0 + 1 >= 0) & (y0 + 1 < size)
+
+    x0c = _index(x0, size)
+    x1c = _index(x0 + 1, size)
+    y0c = _index(y0, size)
+    y1c = _index(y0 + 1, size)
+    base = (layer.long() * (size * size))[None]
+    flat = shadow_packed.reshape(-1)
+    w0 = flat[base + y0c * size + x0c]
+    w1 = flat[base + y1c * size + x0c]
+    inv_q = 1.0 / SHADOW_Q
+    lo0 = (w0 & 0xFFFF).to(torch.float32) * inv_q
+    hi0 = ((w0 >> 16) & 0xFFFF).to(torch.float32) * inv_q
+    lo1 = (w1 & 0xFFFF).to(torch.float32) * inv_q
+    hi1 = ((w1 >> 16) & 0xFFFF).to(torch.float32) * inv_q
+    # x0 < 0 clamps x0c to 0 == x1c: corner 1 is then the word's LO lane
+    use_hi = x1c > x0c
+    one = torch.ones((), dtype=torch.float32, device=us.device)
+    t00 = torch.where(x0in & y0in, lo0, one)
+    t10 = torch.where(x1in & y0in, torch.where(use_hi, hi0, lo0), one)
+    t01 = torch.where(x0in & y1in, lo1, one)
+    t11 = torch.where(x1in & y1in, torch.where(use_hi, hi1, lo1), one)
+    top = t00 + (t10 - t00) * fx
+    bot = t01 + (t11 - t01) * fx
+    return top + (bot - top) * fy
+
+
+def sample_shadow(shadow_packed: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor, layer: torch.Tensor) -> torch.Tensor:
+    """Single bilinear shadow tap (see sample_shadow_batch)."""
+    return sample_shadow_batch(shadow_packed, u[None], v[None], layer)[0]
+
+
+# ----------------------------------------------------------------------------
+# cubemap
+# ----------------------------------------------------------------------------
+
+def _decode_rgb9e5(w):
+    """Shared-exponent RGB9E5 -> (r, g, b) f32 (see types.pack_rgb9e5)."""
+    e = ((w >> 27) & 0x1F).to(torch.float32)
+    scale = torch.exp2(e - (15.0 + 9.0))
+    return ((w & 0x1FF).to(torch.float32) * scale,
+            ((w >> 9) & 0x1FF).to(torch.float32) * scale,
+            ((w >> 18) & 0x1FF).to(torch.float32) * scale)
+
+
+def sample_cubemap(cubemap: torch.Tensor, dx, dy, dz):
+    """cubemap: RGB9E5-packed i32[6, F, F], Vulkan face order
+    +X -X +Y -Y +Z -Z; direction components planar.  Bilinear, per-face
+    clamp-to-edge, face selection per the Vulkan cube-map equations.
+    Returns (r, g, b) planar."""
+    ax, ay, az = torch.abs(dx), torch.abs(dy), torch.abs(dz)
+    use_x = (ax >= ay) & (ax >= az)
+    use_y = (~use_x) & (ay >= az)
+
+    def sel(c, a, b):
+        return torch.where(c, a, b)
+
+    face = sel(use_x, sel(dx >= 0, 0, 1),
+               sel(use_y, sel(dy >= 0, 2, 3), sel(dz >= 0, 4, 5)))
+    ma = sel(use_x, ax, sel(use_y, ay, az))
+    sc = sel(use_x, sel(dx >= 0, -dz, dz),
+             sel(use_y, dx, sel(dz >= 0, dx, -dx)))
+    tc = sel(use_x, -dy, sel(use_y, sel(dy >= 0, dz, -dz), -dy))
+
+    ma = torch.clamp(ma, min=1e-12)
+    u = 0.5 * (sc / ma + 1.0)
+    v = 0.5 * (tc / ma + 1.0)
+
+    size = cubemap.shape[1]
+    xf = u * float(size) - 0.5
+    yf = v * float(size) - 0.5
+    x0 = torch.floor(xf)
+    y0 = torch.floor(yf)
+    fx = xf - x0
+    fy = yf - y0
+    x0i = _index(x0, size)
+    y0i = _index(y0, size)
+    x1i = _index(x0 + 1, size)
+    y1i = _index(y0 + 1, size)
+    flat = cubemap.reshape(-1)
+    base = face.long() * (size * size)
+    w00 = flat[base + y0i * size + x0i]
+    w10 = flat[base + y0i * size + x1i]
+    w01 = flat[base + y1i * size + x0i]
+    w11 = flat[base + y1i * size + x1i]
+    out = []
+    for (c00, c10, c01, c11) in zip(_decode_rgb9e5(w00), _decode_rgb9e5(w10),
+                                    _decode_rgb9e5(w01), _decode_rgb9e5(w11)):
+        top = c00 + (c10 - c00) * fx
+        bot = c01 + (c11 - c01) * fx
+        out.append(top + (bot - top) * fy)
+    return tuple(out)
