@@ -5,30 +5,46 @@
 
 Phases, each printed as one JSON object on its own line:
   1. card: the GPU's name and power limit (nvidia-smi),
-  2. build: compile csrc/raster.cu for sm_90a from this checkout,
-  3. scene: load the committed Sponza replica (assets/sponza_replica),
+  2. build: compile csrc/raster.cu and csrc/post.cu for sm_90a from this
+     checkout, one nvcc per source, both started together,
+  3. scene: load the committed Sponza replica (assets/sponza_replica);
+     the procedural 260k-triangle sponza_like scene is built after phase 5
+     (its own scene line),
   4. frame: the bench frame — driver.render at 1920x1080, CSM mode 3,
      skybox, tonemap, at the bench camera — one warm-up frame, then the
-     mean of the timed frames, with every raster kernel's launch count
-     over that run; bin/peel/sparse overflow must be 0,
+     mean of the timed frames, with every kernel's launch count over that
+     run; bin/peel/sparse overflow must be 0,
   5. kernels: each CUDA kernel on the bench frame's own inputs (camera
      opaque records at 1080p and one 2048^2 cascade for the depth
-     raster, masked round 0 for the k-buffer) against its plain PyTorch
-     version, bit for bit, with both times,
-  6. parity: the 480x272 frame rendered with the kernels against the same
-     frame rendered with the plain versions (PSNR >= 40 dB),
+     raster, masked round 0 for the k-buffer, the frame's HDR colour for
+     the tonemap, the frame's background colours at 1920x1080 for the
+     gradient) against its plain PyTorch version — the raster kernels bit
+     for bit, the post kernels within 2 ulp — with both times and the
+     bound (the least time the card could take for the same work),
+  6. parity: 480x272 frames rendered with the kernels against the same
+     frames rendered with all four plain versions (PSNR >= 40 dB): the
+     bench frame, and a transparent + flat-shaded sponza_like frame,
   7. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
      at 256x128 on the GPU against the port's CPU path, which the CPU
      tests hold against the JAX package's goldens (PSNR >= 40 dB, equal
-     stats).
-Then one {"kernels": [...]} line, the card line as nvidia-smi prints it,
-and last {"ok": true, "device": {...}}.  Exits non-zero, printing no
-result, when there is no CUDA device or the package is missing, and
-non-zero after any failed phase.
+     stats),
+  8. transparent: sponza_like at 1920x1080, CSM mode 3, background and
+     tonemap, from a camera facing a transparent pane — transparent layer
+     0 must cover pixels, every overflow counter must be 0,
+  9. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
+     the flat-shaded cube; each must return 0 with overflow counters 0.
+Phases 4, 8 and 9 each set every kernel's launch count to 0 just before
+they run and read the counts just after; a kernel of that path that never
+launched fails the run.  Then one {"kernels": [...]} line, the card line
+as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
+non-zero, printing no result, when there is no CUDA device or the package
+is missing, and non-zero after any failed phase.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -36,13 +52,33 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 WIDTH, HEIGHT, SHADOW_SIZE = 1920, 1080, 2048
 PARITY_W, PARITY_H, PARITY_SHADOW = 480, 272, 1024
 TIMED_FRAMES = 5
+TRANSPARENT_FRAMES = 3
 KERNEL_REPS = 10
-SRC = "vk_renderer_tpu_torch/csrc/raster.cu"
+POST_ULP = 2
+RASTER_SRC = "vk_renderer_tpu_torch/csrc/raster.cu"
+POST_SRC = "vk_renderer_tpu_torch/csrc/post.cu"
 FIXTURE = "tests/fixtures/textured_box/scene.gltf"
+# published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
+# HBM3 bandwidth and the f32 rate outside the tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# f32 operations of one record at one pixel: three edge planes and the
+# depth plane (2 multiplies + 2 adds each) and the edge sum (2 adds)
+RASTER_OPS = 4 * 4 + 2
+# per tonemap element: add, divide, log, multiply, exp
+TONEMAP_OPS = 5
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "raster_depth": (RASTER_SRC, "vk_renderer_tpu/ops/raster_pallas.py:50"),
+    "raster_layers": (RASTER_SRC,
+                      "vk_renderer_tpu/ops/raster_pallas.py:147"),
+    "tonemap": (POST_SRC, "vk_renderer_tpu/ops/post.py:101"),
+    "gradient": (POST_SRC, "vk_renderer_tpu/ops/post.py:47"),
+}
 
 
 def emit(obj) -> None:
@@ -70,29 +106,107 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-class Recorder:
-    """Wraps a kernel wrapper of ops/raster_kernels to keep the arguments
-    of its calls (the bench frame's own kernel inputs)."""
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()``: ``reps`` launches captured
+    in one CUDA graph and replayed (after a warm-up replay), so the time
+    is the kernels' back to back on the device, without the host's
+    per-call launch cost that cuda_ms includes."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / reps
+    del graph
+    return ms
 
-    def __init__(self, module, name):
-        self.module, self.name = module, name
-        self.real = getattr(module, name)
+
+class Recorder:
+    """Wraps a kernel wrapper held in a module attribute or a dict entry
+    to keep the arguments of its calls (the frame's own kernel inputs)."""
+
+    def __init__(self, owner, name):
+        self.owner, self.name = owner, name
+        self.real = self._get()
         self.calls = []
+
+    def _get(self):
+        if isinstance(self.owner, dict):
+            return self.owner[self.name]
+        return getattr(self.owner, self.name)
+
+    def _set(self, fn):
+        if isinstance(self.owner, dict):
+            self.owner[self.name] = fn
+        else:
+            setattr(self.owner, self.name, fn)
 
     def __enter__(self):
         def record(*args, **kw):
             self.calls.append((args, kw))
             return self.real(*args, **kw)
-        setattr(self.module, self.name, record)
+        self._set(record)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.real)
+        self._set(self.real)
 
 
-def compare(name, shape_tag, kernel_fn, plain_fn, args, kw):
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = n_ops / PEAK_F32_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": int(n_bytes), "ops": int(n_ops)}
+
+
+def raster_work(args, outputs_per_px: int):
+    """(bytes, operations) one raster kernel call needs on these inputs:
+    each tile's records read once, the per-tile and per-pixel inputs read
+    once, the outputs written once; per record, the pixels of the tile
+    rows its triangle spans (the record's row range) times RASTER_OPS."""
+    import torch
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    records, rec_start, counts = args[0], args[1], args[2]
+    planes = [a for a in args[3:5] if isinstance(a, torch.Tensor)]
+    n_tiles, th, tw = planes[0].shape
+    chunks = (counts.long() + rk.CHUNK - 1) // rk.CHUNK
+    slot_tile = torch.repeat_interleave(torch.arange(n_tiles,
+                                                     device=counts.device),
+                                        chunks * rk.CHUNK)
+    first = (rec_start.long() * rk.CHUNK)[slot_tile]
+    local = torch.arange(slot_tile.numel(), device=counts.device) - \
+        torch.repeat_interleave(torch.cumsum(chunks * rk.CHUNK, 0)
+                                - chunks * rk.CHUNK, chunks * rk.CHUNK)
+    live = local < counts.long()[slot_tile]
+    rr = records.reshape(-1, rk.F_FIELDS)[first + local, 13].to(torch.int64)
+    rows = torch.clamp((rr & 255) - (rr >> 8), min=0)
+    ops = float((rows * live).sum()) * tw * RASTER_OPS
+    px = n_tiles * th * tw
+    n_bytes = (float(chunks.sum()) * rk.CHUNK * rk.F_FIELDS * 4
+               + 8 * n_tiles + 4 * px * len(planes) + outputs_per_px * px)
+    return n_bytes, ops
+
+
+def compare_raster(name, shape_tag, kernel_fn, plain_fn, args, kw,
+                   outputs_per_px):
     """Kernel vs plain version on the same inputs: bit-for-bit check of
-    depth and ids, max |depth difference|, and both times."""
+    depth and ids, max |depth difference|, both times and the bound."""
     import torch
     kd, ki = kernel_fn(*args, **kw)
     pd, pi = plain_fn(*args, **kw)
@@ -100,14 +214,40 @@ def compare(name, shape_tag, kernel_fn, plain_fn, args, kw):
     same = bool(torch.equal(kd, pd) and torch.equal(ki, pi))
     err = float((kd - pd).abs().max()) if kd.numel() else 0.0
     id_mismatch = int((ki != pi).sum())
-    ms = cuda_ms(lambda: kernel_fn(*args, **kw), KERNEL_REPS)
+    ms = graph_ms(lambda: kernel_fn(*args, **kw), KERNEL_REPS)
+    ms_eager = cuda_ms(lambda: kernel_fn(*args, **kw), KERNEL_REPS)
     plain_ms = cuda_ms(lambda: plain_fn(*args, **kw), 1)
     out = {"phase": "kernel_check", "kernel": name, "input": shape_tag,
            "tiles": int(args[2].shape[0]),
            "records": int(args[0].shape[0]),
            "max_count": int(args[2].max()) if args[2].numel() else 0,
-           "bit_exact": same, "max_abs_err": err,
-           "id_mismatches": id_mismatch, "ms": ms, "plain_ms": plain_ms}
+           "bit_exact": same, "max_abs_err": err, "max_ulp": None,
+           "id_mismatches": id_mismatch, "ms": ms, "ms_eager": ms_eager,
+           "plain_ms": plain_ms,
+           **bound(*raster_work(args, outputs_per_px)), "library_ms": None}
+    emit(out)
+    return out
+
+
+def compare_post(name, shape_tag, kernel_fn, plain_fn, args, n_bytes,
+                 n_ops):
+    """Kernel vs plain version on the same inputs: max ulp and max
+    |difference| (NaN where both are NaN counts as equal), both times and
+    the bound."""
+    import torch
+    from vk_renderer_tpu_torch.ops.common import max_ulp
+    k = kernel_fn(*args)
+    p = plain_fn(*args)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(k) & torch.isfinite(p)
+    err = float((k - p)[finite].abs().max()) if bool(finite.any()) else 0.0
+    out = {"phase": "kernel_check", "kernel": name, "input": shape_tag,
+           "bit_exact": bool(torch.equal(k, p)), "max_ulp": max_ulp(k, p),
+           "max_abs_err": err,
+           "ms": graph_ms(lambda: kernel_fn(*args), KERNEL_REPS),
+           "ms_eager": cuda_ms(lambda: kernel_fn(*args), KERNEL_REPS),
+           "plain_ms": cuda_ms(lambda: plain_fn(*args), 1),
+           **bound(n_bytes, n_ops), "library_ms": None}
     emit(out)
     return out
 
@@ -122,10 +262,13 @@ def main() -> int:
                     "and has no CPU fallback")
     try:
         import numpy as np
+        from vk_renderer_tpu_torch.app import headless
         from vk_renderer_tpu_torch.graph import driver, frame
         from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+        from vk_renderer_tpu_torch.ops import post
         from vk_renderer_tpu_torch.ops import raster_kernels as rk
-        from vk_renderer_tpu_torch.scene import ktx
+        from vk_renderer_tpu_torch.ops.common import cdiv, from_tiles
+        from vk_renderer_tpu_torch.scene import ktx, procedural
         from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
         from vk_renderer_tpu_torch.scene.camera import Camera
         from vk_renderer_tpu_torch.scene.types import scene_to_torch
@@ -139,6 +282,26 @@ def main() -> int:
     failures = []
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
+    wrappers = {"raster_depth": rk.rasterize_depth_grid,
+                "raster_layers": rk.rasterize_layers_grid,
+                "tonemap": post.tonemap, "gradient": post.gradient}
+
+    def reset_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+
+    def read_counts():
+        return {name: fn.launches for name, fn in wrappers.items()}
+
+    def gate_launches(path, counts, names):
+        for name in names:
+            if counts[name] == 0:
+                failures.append(f"{name} never launched on the {path} path")
+
+    def gate_stats(path, stats):
+        for key in ("bin_overflow", "peel_overflow", "sparse_overflow"):
+            if stats[key] != 0:
+                failures.append(f"{path} {key} = {stats[key]}")
 
     # ---- 1. card
     smi = subprocess.run(
@@ -149,23 +312,28 @@ def main() -> int:
     emit({"phase": "card", "nvidia_smi": card_line, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 2. build
+    # ---- 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     try:
-        lib_path = rk.build_kernels()
-        log = os.path.splitext(lib_path)[0] + ".log"
-        ptxas = ""
-        if os.path.exists(log):
-            with open(log) as f:
-                ptxas = " | ".join(ln.strip() for ln in f
-                                   if "registers" in ln or "spill" in ln)
-        emit({"phase": "build", "ok": True, "source": SRC,
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futures = {src: pool.submit(mod.build_kernels)
+                       for src, mod in ((RASTER_SRC, rk), (POST_SRC, post))}
+            libs = {src: f.result() for src, f in futures.items()}
+        ptxas = {}
+        for src, lib_path in libs.items():
+            log = os.path.splitext(lib_path)[0] + ".log"
+            if os.path.exists(log):
+                with open(log) as f:
+                    ptxas[src] = " | ".join(
+                        ln.strip() for ln in f
+                        if "registers" in ln or "spill" in ln)
+        emit({"phase": "build", "ok": True, "sources": list(libs),
               "seconds": time.perf_counter() - t0, "ptxas": ptxas})
     except Exception as e:   # a build failure ends the run
         emit({"phase": "build", "ok": False, "error": str(e)[-2000:]})
         return fail("kernel build failed")
 
-    # ---- 3. scene
+    # ---- 3. scenes
     t0 = time.perf_counter()
     b = SceneBuilder()
     b.load_gltf("assets/sponza_replica/Sponza.glb", "sponza")
@@ -173,7 +341,8 @@ def main() -> int:
     host = b.build()
     scene = scene_to_torch(host, dev)
     torch.cuda.synchronize()
-    emit({"phase": "scene", "triangles": int(host.num_triangles),
+    emit({"phase": "scene", "scene": "sponza_replica",
+          "triangles": int(host.num_triangles),
           "opaque": host.n_opaque, "masked": host.n_masked,
           "masked_raster": host.n_masked_raster,
           "transparent": host.n_transparent,
@@ -187,10 +356,10 @@ def main() -> int:
                                       shadow_size=SHADOW_SIZE)
     cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
     cam.yaw = np.pi / 2
-    rk.rasterize_depth_grid.launches = 0
-    rk.rasterize_layers_grid.launches = 0
+    reset_counts()
     with Recorder(rk, "rasterize_depth_grid") as rec_d, \
-            Recorder(rk, "rasterize_layers_grid") as rec_k:
+            Recorder(rk, "rasterize_layers_grid") as rec_k, \
+            Recorder(frame.POSTPROCESS_REGISTRY, "tonemap") as rec_t:
         t0 = time.perf_counter()
         out = driver.render(scene, cam, settings, cfg)
         torch.cuda.synchronize()
@@ -200,8 +369,7 @@ def main() -> int:
         out = driver.render(scene, cam, settings, cfg)
     torch.cuda.synchronize()
     frame_ms = 1000.0 * (time.perf_counter() - t0) / TIMED_FRAMES
-    launches = {"raster_depth": rk.rasterize_depth_grid.launches,
-                "raster_layers": rk.rasterize_layers_grid.launches}
+    launches = read_counts()
     stats = frame.stats_from_vec(out["stats_vec"])
     color = out["color"]
     finite = bool(torch.isfinite(color).all())
@@ -212,14 +380,11 @@ def main() -> int:
           "stats": stats, "launches": launches, "finite": finite,
           "shape_ok": shape_ok,
           "mean_u8": float(out["color_u8"].float().mean())})
-    for key in ("bin_overflow", "peel_overflow", "sparse_overflow"):
-        if stats[key] != 0:
-            failures.append(f"frame {key} = {stats[key]}")
+    gate_stats("frame", stats)
     if not (finite and shape_ok):
         failures.append("frame output not finite or misshapen")
-    for name, n in launches.items():
-        if n == 0:
-            failures.append(f"{name} never launched on the main path")
+    gate_launches("bench frame", launches, KERNELS)
+    del out, color
 
     # ---- 5. kernels vs plain versions on the frame's own inputs
     cam_tiles = math.ceil(WIDTH / cfg.tile_w) * math.ceil(HEIGHT / cfg.tile_h)
@@ -227,51 +392,107 @@ def main() -> int:
     sh_calls = [c for c in rec_d.calls if c[0][2].shape[0] ==
                 math.ceil(cfg.shadow_size / cfg.tile_w)
                 * math.ceil(cfg.shadow_size / cfg.tile_h)]
-    checks = {"raster_depth": [], "raster_layers": []}
+    checks = {name: [] for name in KERNELS}
     try:
-        checks["raster_depth"].append(compare(
+        checks["raster_depth"].append(compare_raster(
             "raster_depth", f"camera_opaque_{WIDTH}x{HEIGHT}",
             rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
-            *cam_calls[-1]))
-        checks["raster_depth"].append(compare(
+            *cam_calls[-1], outputs_per_px=8))
+        checks["raster_depth"].append(compare_raster(
             "raster_depth", f"shadow_cascade0_{SHADOW_SIZE}",
             rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
-            *sh_calls[0]))
-        checks["raster_layers"].append(compare(
-            "raster_layers", f"masked_round0_{WIDTH}x{HEIGHT}",
+            *sh_calls[0], outputs_per_px=8))
+        k0 = rec_k.calls[0][0][6]
+        checks["raster_layers"].append(compare_raster(
+            "raster_layers", f"masked_round0_{WIDTH}x{HEIGHT}_k{k0}",
             rk.rasterize_layers_grid, rk.rasterize_layers_grid_plain,
-            *rec_k.calls[0]))
+            *rec_k.calls[0], outputs_per_px=8 * k0))
+        hdr = rec_t.calls[0][0][0]
+        n = hdr.numel()
+        checks["tonemap"].append(compare_post(
+            "tonemap", f"frame_hdr_3x{HEIGHT}x{WIDTH}", post.tonemap,
+            post.tonemap_plain, (hdr,), 8 * n, TONEMAP_OPS * n))
+        st = driver.settings_to_torch(settings, dev)
+        checks["gradient"].append(compare_post(
+            "gradient", f"background_3x{HEIGHT}x{WIDTH}",
+            lambda *a: post.gradient(*a, extent_h=HEIGHT),
+            lambda *a: post.gradient_plain(*a, extent_h=HEIGHT),
+            (HEIGHT, WIDTH, st["bg_top"], st["bg_bottom"]),
+            4 * 3 * HEIGHT * WIDTH + 32, 5 * 3 * HEIGHT))
     except Exception:
         traceback.print_exc()
         failures.append("kernel check raised")
-    for name, cs in checks.items():
+    for name in ("raster_depth", "raster_layers"):
+        cs = checks[name]
         if not cs or not all(c["bit_exact"] for c in cs):
             failures.append(f"{name} disagrees with its plain version")
-    del rec_d, rec_k, cam_calls, sh_calls
+    for name in ("tonemap", "gradient"):
+        cs = checks[name]
+        if not cs or not all(c["max_ulp"] <= POST_ULP for c in cs):
+            failures.append(f"{name} is more than {POST_ULP} ulp from its "
+                            f"plain version")
+    del rec_d, rec_k, rec_t, cam_calls, sh_calls
+
+    # ---- the procedural scene of phases 6 and 8, built after the bench
+    # frame so that phase 4 runs as it did before this scene existed
+    t0 = time.perf_counter()
+    like_host = procedural.build_sponza_like().build()
+    like = scene_to_torch(like_host, dev)
+    torch.cuda.synchronize()
+    emit({"phase": "scene", "scene": "sponza_like",
+          "triangles": int(like_host.num_triangles),
+          "opaque": like_host.n_opaque, "masked": like_host.n_masked,
+          "transparent": like_host.n_transparent,
+          "seconds": time.perf_counter() - t0})
 
     # ---- 6. frame parity: kernels vs plain versions at 480x272
-    pcfg = driver.config_from_settings(settings, PARITY_W, PARITY_H,
-                                       shadow_size=PARITY_SHADOW)
-    try:
-        t0 = time.perf_counter()
-        fast = driver.render(scene, cam, settings, pcfg)["color_u8"]
-        real = (rk.rasterize_depth_grid, rk.rasterize_layers_grid)
-        rk.rasterize_depth_grid = rk.rasterize_depth_grid_plain
-        rk.rasterize_layers_grid = rk.rasterize_layers_grid_plain
+    # faces the pane at x = 3 from its front (+z) side, far enough that
+    # the pane's triangles stay under the binner's big-triangle capacity
+    # (from (3, 2.5, 3.5) they overflow it at 1080p)
+    pane_cam = Camera(position=np.array([0.0, 3.0, 3.8], np.float32))
+    pane_cam.yaw = -0.9
+    t_settings = RenderSettings(enable_shadows=True, shadow_mode=3,
+                                enable_background=True,
+                                enable_postprocess=True)
+    parity_cases = [
+        ("bench", scene, cam, settings, driver.config_from_settings(
+            settings, PARITY_W, PARITY_H, shadow_size=PARITY_SHADOW)),
+        ("sponza_like_transparent_flat", like, pane_cam, t_settings,
+         driver.config_from_settings(t_settings, PARITY_W, PARITY_H,
+                                     shading="flat",
+                                     shadow_size=PARITY_SHADOW)),
+    ]
+    for tag, p_scene, p_cam, p_set, pcfg in parity_cases:
         try:
-            ref = driver.render(scene, cam, settings, pcfg)["color_u8"]
-        finally:
-            rk.rasterize_depth_grid, rk.rasterize_layers_grid = real
-        p = psnr(fast.cpu().numpy().astype(np.float32) / 255.0,
-                 ref.cpu().numpy().astype(np.float32) / 255.0)
-        emit({"phase": "parity", "width": PARITY_W, "height": PARITY_H,
-              "shadow_size": PARITY_SHADOW, "psnr_db": p,
-              "seconds": time.perf_counter() - t0})
-        if not p >= 40.0:
-            failures.append(f"parity PSNR {p:.2f} dB < 40 dB")
-    except Exception:
-        traceback.print_exc()
-        failures.append("parity phase raised")
+            t0 = time.perf_counter()
+            fast = driver.render(p_scene, p_cam, p_set, pcfg)
+            real = (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
+                    frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient)
+            rk.rasterize_depth_grid = rk.rasterize_depth_grid_plain
+            rk.rasterize_layers_grid = rk.rasterize_layers_grid_plain
+            frame.POSTPROCESS_REGISTRY["tonemap"] = post.tonemap_plain
+            post.gradient = post.gradient_plain
+            try:
+                ref = driver.render(p_scene, p_cam, p_set, pcfg)
+            finally:
+                (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
+                 frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient) = real
+            p = psnr(fast["color_u8"].cpu().numpy().astype(np.float32)
+                     / 255.0,
+                     ref["color_u8"].cpu().numpy().astype(np.float32) / 255.0)
+            fs, rs = (frame.stats_from_vec(fast["stats_vec"]),
+                      frame.stats_from_vec(ref["stats_vec"]))
+            emit({"phase": "parity", "frame": tag, "width": PARITY_W,
+                  "height": PARITY_H, "shading": pcfg.shading,
+                  "shadow_size": PARITY_SHADOW, "psnr_db": p, "stats": fs,
+                  "stats_equal": fs == rs,
+                  "seconds": time.perf_counter() - t0})
+            if not (p >= 40.0 and fs == rs):
+                failures.append(f"parity {tag}: PSNR {p:.2f} dB, stats "
+                                f"{fs} vs {rs}")
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"parity phase {tag} raised")
 
     # ---- 7. small-input reference: GPU frame vs the port's CPU path
     try:
@@ -302,22 +523,109 @@ def main() -> int:
         traceback.print_exc()
         failures.append("reference phase raised")
 
+    # ---- 8. the transparent pass at full width
+    try:
+        tcfg = driver.config_from_settings(t_settings, WIDTH, HEIGHT,
+                                           shadow_size=SHADOW_SIZE)
+        reset_counts()
+        with Recorder(rk, "rasterize_layers_grid") as rec_l:
+            t0 = time.perf_counter()
+            tout = driver.render(like, pane_cam, t_settings, tcfg)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(TRANSPARENT_FRAMES):
+            tout = driver.render(like, pane_cam, t_settings, tcfg)
+        torch.cuda.synchronize()
+        t_ms = 1000.0 * (time.perf_counter() - t0) / TRANSPARENT_FRAMES
+        t_launches = read_counts()
+        tstats = frame.stats_from_vec(tout["stats_vec"])
+        tfinite = bool(torch.isfinite(tout["color"]).all())
+        # the transparent pass is the frame's last k-buffer call; its
+        # layer 0, cropped to the frame, counted after the main path's
+        # launches were read
+        targs, tkw = rec_l.calls[-1]
+        k_t = targs[6]
+        _, ids = rk.rasterize_layers_grid(*targs, **tkw)
+        layer0 = from_tiles(ids[0], cdiv(HEIGHT, tcfg.tile_h),
+                            cdiv(WIDTH, tcfg.tile_w))[:HEIGHT, :WIDTH]
+        cover0 = int((layer0 != targs[5]).sum())          # 5: sentinel
+        del rec_l, targs, tkw, ids, layer0
+        emit({"phase": "transparent", "scene": "sponza_like",
+              "triangles": int(like_host.num_triangles),
+              "width": WIDTH, "height": HEIGHT, "warmup_s": warm_s,
+              "frames": TRANSPARENT_FRAMES, "frame_ms": t_ms,
+              "k_layers": k_t, "layer0_covered_px": cover0,
+              "stats": tstats, "launches": t_launches, "finite": tfinite,
+              "mean_u8": float(tout["color_u8"].float().mean())})
+        del tout
+        gate_stats("transparent frame", tstats)
+        if k_t != tcfg.transparent_peels + 1:
+            failures.append(f"last k-buffer call has k={k_t}, not the "
+                            f"transparent pass's {tcfg.transparent_peels + 1}")
+        if cover0 <= 0:
+            failures.append("transparent layer 0 covers no pixel")
+        if not tfinite:
+            failures.append("transparent frame not finite")
+        gate_launches("transparent frame", t_launches, KERNELS)
+    except Exception:
+        traceback.print_exc()
+        failures.append("transparent phase raised")
+
+    # ---- 9. the headless CLI, in-process
+    del like
+    runs = [("sponza_like", ["--scene", "sponza_like", "--frames", "3",
+                             "--width", str(WIDTH), "--height", str(HEIGHT),
+                             "--shadows", "--mode", "3", "--background",
+                             "--tonemap"], KERNELS),
+            ("cube_flat", ["--scene", "cube", "--flat", "--background"],
+             ("raster_depth", "tonemap", "gradient"))]
+    for tag, argv, path_kernels in runs:
+        try:
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = headless.main(argv)
+            seconds = time.perf_counter() - t0
+            h_launches = read_counts()
+            lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                     if ln.startswith("{")]
+            per_frame = [ln for ln in lines if "frame" in ln]
+            avg = [ln for ln in lines if "avg_frametime_ms" in ln]
+            emit({"phase": "headless", "run": tag, "argv": argv, "rc": rc,
+                  "seconds": seconds, "frames": per_frame,
+                  "average": avg[0] if avg else None,
+                  "launches": h_launches})
+            if rc != 0 or not per_frame:
+                failures.append(f"headless {tag} returned {rc} with "
+                                f"{len(per_frame)} frame lines")
+            for ln in per_frame:
+                gate_stats(f"headless {tag} frame {ln['frame']}", ln)
+            gate_launches(f"headless {tag}", h_launches, path_kernels)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"headless {tag} raised")
+
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1
 
-    def entry(name, replaces):
+    def entry(name):
         cs = checks[name]
-        return {"name": name, "route": "cuda", "source": SRC,
+        source, replaces = KERNELS[name]
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": max(c["max_abs_err"] for c in cs),
-                "ms": cs[0]["ms"], "plain_ms": cs[0]["plain_ms"]}
+                "max_ulp": max((c["max_ulp"] for c in cs
+                                if c["max_ulp"] is not None), default=None),
+                "ms": cs[0]["ms"], "ms_eager": cs[0]["ms_eager"],
+                "plain_ms": cs[0]["plain_ms"],
+                "bound_ms": cs[0]["bound_ms"], "bound_by": cs[0]["bound_by"],
+                "library_ms": None}
 
-    emit({"kernels": [
-        entry("raster_depth", "vk_renderer_tpu/ops/raster_pallas.py:50"),
-        entry("raster_layers", "vk_renderer_tpu/ops/raster_pallas.py:147"),
-    ]})
+    emit({"kernels": [entry(name) for name in KERNELS]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

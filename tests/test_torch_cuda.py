@@ -1,5 +1,7 @@
-"""The port's CUDA raster kernels against their plain PyTorch versions, on
-the card, bit for bit (depths and ids).
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the raster kernels bit for bit (depths and ids), the post kernels
+within 2 ulp (the tonemap's logf / expf are CUDA's; the gradient is
+bit-exact).
 
 The plain versions are held against the JAX package's Pallas kernels on
 the CPU (tests/test_torch_raster.py); this file closes the chain on the
@@ -14,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from vk_renderer_tpu_torch.ops import binning, raster
+from vk_renderer_tpu_torch.ops import binning, post, raster
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.ops import setup
+from vk_renderer_tpu_torch.ops.common import max_ulp
 
 from raster_streams import (COLS, H, N_TILES, R, SENT, TH, TW, W,
                             clip_scene, pad_records, synthetic_stream)
@@ -115,3 +118,73 @@ def test_kernel_wrappers_reject_bad_arguments(dev):
     with pytest.raises(TypeError):
         rk.rasterize_depth_grid(rec, start, counts, bound,
                                 bound.to(torch.int64), tile_h=TH)
+
+
+POST_SHAPES = [(1, 1), (7, 130), (1080, 1920)]
+POST_ULP = 2
+
+
+def _hdr_image(dev, h, w, seed):
+    """HDR colours with the edge values first: 0, -0, denormals, the
+    smallest normal, 1, 1e30, inf and a NaN."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 16, size=3 * h * w).astype(np.float32)
+    special = np.array([0.0, -0.0, 1e-45, 3e-39, 1.17549435e-38, 1.0, 1e30,
+                        np.inf, np.nan, 1e-30], np.float32)
+    img[:min(img.size, special.size)] = special[:img.size]
+    return torch.from_numpy(img.reshape(3, h, w)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", POST_SHAPES, ids=lambda x: str(x))
+def test_tonemap_kernel_matches_plain(dev, h, w):
+    img = _hdr_image(dev, h, w, h + w)
+    before = post.tonemap.launches
+    got = post.tonemap(img)
+    want = post.tonemap_plain(img)
+    torch.cuda.synchronize()
+    assert post.tonemap.launches == before + 1
+    ulp = max_ulp(got, want)
+    print(f"tonemap {h}x{w}: max_ulp {ulp}")
+    assert ulp <= POST_ULP, ulp
+    assert float(got.reshape(-1)[0]) == 0.0          # zero maps to 0
+
+
+@pytest.mark.cuda
+def test_tonemap_kernel_takes_an_unaligned_view(dev):
+    """A view whose start is not 16-byte aligned takes the scalar loop."""
+    img = _hdr_image(dev, 7, 130, 3).reshape(-1)
+    flat = torch.empty(img.numel() + 1, device=dev)[1:]
+    flat.copy_(img)
+    got = post.tonemap(flat)
+    assert max_ulp(got, post.tonemap_plain(flat)) <= POST_ULP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", POST_SHAPES, ids=lambda x: str(x))
+@pytest.mark.parametrize("extent", ["h", "short"])
+def test_gradient_kernel_matches_plain(dev, h, w, extent):
+    rng = np.random.default_rng(h * w)
+    top, bottom = (torch.from_numpy(x).to(dev) for x in rng.uniform(
+        0, 1, size=(2, 4)).astype(np.float32))
+    top[1] = 3e-39                                       # a denormal
+    extent_h = None if extent == "h" else max(1, h - 3)
+    before = post.gradient.launches
+    got = post.gradient(h, w, top, bottom, extent_h)
+    want = post.gradient_plain(h, w, top, bottom, extent_h)
+    torch.cuda.synchronize()
+    assert post.gradient.launches == before + 1
+    assert got.shape == (3, h, w)
+    ulp = max_ulp(got, want)
+    print(f"gradient {h}x{w} extent {extent_h}: max_ulp {ulp}")
+    assert ulp <= POST_ULP, ulp
+
+
+@pytest.mark.cuda
+def test_post_wrappers_reject_bad_arguments(dev):
+    with pytest.raises(TypeError):
+        post.tonemap(torch.ones((3, 4, 4), device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        post.tonemap(torch.ones((3, 4, 4), device=dev).transpose(1, 2))
+    with pytest.raises(ValueError, match="on cpu"):
+        post.gradient(4, 4, torch.ones(4, device=dev), torch.ones(4))

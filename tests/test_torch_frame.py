@@ -22,7 +22,8 @@ from vk_renderer_tpu_torch.utils.image import psnr
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
-PORTED = ("cube_pbr_sky_tonemap", "cube_csm", "gltf_fixture")
+PORTED = ("cube_flat_bg", "cube_pbr_sky_tonemap", "cube_csm",
+          "sponza_like_flagship", "gltf_fixture")
 
 
 def _golden_configs():
@@ -42,11 +43,21 @@ def port_settings(settings):
                              for f in dataclasses.fields(RenderSettings)})
 
 
+def golden_camera(builder):
+    """make_goldens.render_config's camera: the sponza builders look down
+    the hall from eye level, every other scene from the origin."""
+    cam = Camera()
+    if "sponza" in getattr(builder, "__name__", ""):
+        cam.position = np.array([9.0, 1.8, 0.3], np.float32)
+        cam.yaw = float(np.pi / 2)
+    return cam
+
+
 def _render(name):
     _, builder, settings, cfg = _golden_configs()[name]
     scene = scene_to_torch(builder().build(), "cpu")
-    return driver.render(scene, Camera(), port_settings(settings),
-                         port_config(cfg))
+    return driver.render(scene, golden_camera(builder),
+                         port_settings(settings), port_config(cfg))
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -90,12 +101,81 @@ def test_masked_pass_runs_continuation_rounds(monkeypatch):
                                   full["color_u8"].numpy())
 
 
-def test_transparent_scene_raises():
+def test_transparent_cube_matches_jax_frame(monkeypatch):
+    """The cube with its last two triangles (the -y face) made additive
+    transparent, seen from below at 100x70 so the face fills most of the
+    frame and its layer also covers tile padding (columns past 100, rows
+    past 70 — the pass must crop them), through the port and through the
+    JAX package's render_frame: equal stats, u8 frames >= 40 dB, float
+    colours within 1e-4 (the tonemap forms differ by up to ~4e-5)
+    wherever the depths agree to 1e-6."""
+    from vk_renderer_tpu.graph import driver as jdriver
+    from vk_renderer_tpu.graph import frame as jframe
+    from vk_renderer_tpu.graph.frame import FrameConfig as JaxConfig
+    from vk_renderer_tpu.graph.scenedata import (
+        RenderSettings as JaxSettings)
     from vk_renderer_tpu.scene import procedural
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    from vk_renderer_tpu_torch.ops.common import from_tiles
     host = procedural.build_cube_scene().build()
     host.n_opaque -= 2
     host.n_transparent = 2
-    scene = scene_to_torch(host, "cpu")
-    cfg = frame.FrameConfig(width=128, height=64)
-    with pytest.raises(NotImplementedError, match="transparent"):
-        driver.render(scene, Camera(), RenderSettings(), cfg)
+    cam = Camera(position=np.array([0.1, -2.2, -4.6], np.float32))
+    cam.pitch = 1.3
+    settings = JaxSettings(enable_postprocess=True, enable_background=True)
+    jcfg = JaxConfig(width=100, height=70)
+    jout = jframe.render_frame(
+        host.device_put(), jdriver.scene_data_pytree(cam, settings, jcfg),
+        jdriver.make_settings_pytree(settings), jcfg)
+    layers = []
+    real = rk.rasterize_layers_grid
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        layers.append(out[1][0])
+        return out
+
+    monkeypatch.setattr(rk, "rasterize_layers_grid", spy)
+    out = driver.render(scene_to_torch(host, "cpu"), cam,
+                        port_settings(settings), port_config(jcfg))
+    layer0 = from_tiles(layers[-1], 3, 1) != host.tris.shape[0]
+    assert int(layer0[:70, :100].sum()) > 0
+    assert int(layer0.sum() - layer0[:70, :100].sum()) > 0   # padding
+    stats = frame.stats_from_vec(out["stats_vec"])
+    assert stats == jframe.stats_from_vec(jout["stats_vec"])
+    assert stats["peel_overflow"] == 0 and stats["bin_overflow"] == 0
+    p = psnr(out["color_u8"].numpy().astype(np.float32) / 255.0,
+             np.asarray(jout["color_u8"]).astype(np.float32) / 255.0)
+    assert p >= 40.0, f"PSNR {p:.1f} dB"
+    same = np.abs(out["depth"].numpy() - np.asarray(jout["depth"])) <= 1e-6
+    diff = np.abs(out["color"].numpy() - np.asarray(jout["color"]))[:, same]
+    assert diff.max() <= 1e-4, float(diff.max())
+
+
+def test_headless_cli_renders_on_the_cpu_when_asked(tmp_path, capsys):
+    """The port's headless CLI: --device cpu renders the procedural cube
+    (flat shading, gradient background), prints one JSON stats line per
+    frame and an average line, writes the PNGs and returns 0."""
+    import json
+    from vk_renderer_tpu_torch.app import headless
+    out_dir = tmp_path / "frames"
+    rc = headless.main(["--scene", "cube", "--flat", "--background",
+                        "--frames", "2", "--width", "64", "--height", "32",
+                        "--device", "cpu", "--out", str(out_dir)])
+    assert rc == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert [ln["frame"] for ln in lines[:-1]] == [0, 1]
+    assert all(ln["bin_overflow"] == 0 and ln["peel_overflow"] == 0
+               for ln in lines[:-1])
+    assert lines[-1]["device"] == "cpu" and "avg_frametime_ms" in lines[-1]
+    assert sorted(os.listdir(out_dir)) == ["frame_0000.png",
+                                           "frame_0001.png"]
+
+
+def test_headless_cli_refuses_a_missing_cuda_device(monkeypatch, capsys):
+    """The default device is cuda, with no silent fallback to the CPU."""
+    import torch
+    from vk_renderer_tpu_torch.app import headless
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert headless.main(["--scene", "cube", "--frames", "1"]) != 0
+    assert "--device cpu" in capsys.readouterr().err

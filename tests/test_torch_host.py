@@ -122,6 +122,47 @@ def test_ktx_cubemap_loads_like_jax_package():
                                   ref_ktx.load_cubemap(REPLICA_KTX))
 
 
+@pytest.fixture(scope="module")
+def procedural_pairs():
+    """(port host scene, JAX host scene) per procedural builder; the
+    Sponza-class scene at the goldens' 40k-triangle build."""
+    from vk_renderer_tpu.scene import procedural as ref
+    from vk_renderer_tpu_torch.scene import procedural
+    return {
+        "cube": (procedural.build_cube_scene().build(),
+                 ref.build_cube_scene().build()),
+        "sponza_like": (procedural.build_sponza_like(40_000).build(),
+                        ref.build_sponza_like(40_000).build()),
+    }
+
+
+@pytest.mark.parametrize("name", ["cube", "sponza_like"])
+def test_procedural_builders_match_jax_package(procedural_pairs, name):
+    """The port's procedural builders give the JAX builders' host scene
+    array by array, exactly (heap words, cubemap and counts included)."""
+    port, ref = procedural_pairs[name]
+    _assert_host_scenes_equal(port, ref)
+    np.testing.assert_array_equal(port.cubemap, ref.cubemap)
+    if name == "sponza_like":
+        assert port.n_masked > 0 and port.n_transparent > 0
+
+
+def test_procedural_primitives_match_jax_package():
+    from vk_renderer_tpu.scene import procedural as ref
+    from vk_renderer_tpu_torch.scene import procedural
+    for a, b in zip(procedural.box_mesh((0.5, 1.0, 2.0), (1, 2, 3), 2.0),
+                    ref.box_mesh((0.5, 1.0, 2.0), (1, 2, 3), 2.0)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        procedural.checker_texture(64, (1, 2, 3, 255), (9, 8, 7, 255), 4),
+        ref.checker_texture(64, (1, 2, 3, 255), (9, 8, 7, 255), 4))
+    np.testing.assert_array_equal(
+        procedural.noise_texture(64, (0.2, 0.7, 0.2), 4, alpha_holes=True),
+        ref.noise_texture(64, (0.2, 0.7, 0.2), 4, alpha_holes=True))
+    np.testing.assert_array_equal(procedural.make_sky_cubemap(16),
+                                  ref.make_sky_cubemap(16))
+
+
 def _cube_host():
     from vk_renderer_tpu.scene import procedural
     b = procedural.build_cube_scene()
@@ -182,6 +223,9 @@ def test_port_imports_no_jax():
     """The port never imports JAX (it must run where JAX is absent)."""
     code = ("import sys, vk_renderer_tpu_torch.graph.driver, "
             "vk_renderer_tpu_torch.ops.raster_kernels, "
+            "vk_renderer_tpu_torch.ops.post, "
+            "vk_renderer_tpu_torch.scene.procedural, "
+            "vk_renderer_tpu_torch.app.headless, "
             "vk_renderer_tpu_torch.scene.assembly; "
             "print(any(m == 'jax' or m.startswith('jax.') "
             "for m in sys.modules))")

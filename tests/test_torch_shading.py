@@ -247,3 +247,89 @@ def test_post_matches_jax():
     bottom = np.array([0, 0.25, 1, 1], np.float32)
     close(tpost.gradient_xla(10, 12, T(top), T(bottom)),
           jpost.gradient_xla(10, 12, jnp.asarray(top), jnp.asarray(bottom)))
+
+
+def _random_gbuffer(rng, shape, n_mat):
+    _, u, v, d = _uv_inputs(rng, shape, 1)
+    g = {"nx": rng.normal(size=shape), "ny": rng.normal(size=shape),
+         "nz": rng.normal(size=shape),
+         "cr": rng.uniform(0.5, 1, shape), "cg": rng.uniform(0.5, 1, shape),
+         "cb": rng.uniform(0.5, 1, shape), "u": u, "v": v,
+         "dudx": d[0], "dvdx": d[1], "dudy": d[2], "dvdy": d[3],
+         "wx": rng.uniform(-5, 5, shape), "wy": rng.uniform(0, 3, shape),
+         "wz": rng.uniform(-5, 5, shape),
+         "view_z": -rng.uniform(0.5, 60, shape)}
+    g = {k: np.asarray(x, np.float32) for k, x in g.items()}
+    g["mat_id"] = rng.integers(0, n_mat, shape).astype(np.int32)
+    g["covered"] = rng.random(shape) < 0.8
+    return g
+
+
+@pytest.mark.parametrize("mode", [0, 3])
+def test_shade_flat_matches_jax(scenes, mode):
+    """shade_flat (mesh.frag) over a random G-buffer, with shadows from
+    random maps, against the JAX package's dense-filter branch."""
+    jscene, tscene = scenes
+    rng = np.random.default_rng(11 + mode)
+    g = _random_gbuffer(rng, (20, 28), int(tscene.mat_tex_ids.shape[0]))
+    maps = rng.uniform(0.2, 1.0, size=(4, 32, 32)).astype(np.float32)
+    packed = ttex.pack_shadow_maps(T(maps))
+    jsd, tsd = _scene_data(mode)
+    (jr, jg, jb), ja = jshade.shade_flat(
+        {k: jnp.asarray(x) for k, x in g.items()}, jscene, jsd,
+        jnp.asarray(packed.numpy()), mode, True)
+    (tr, tg, tb), ta = tshade.shade_flat(
+        {k: T(x) for k, x in g.items()}, tscene, tsd, packed, mode, True)
+    for a, b in ((jr, tr), (jg, tg), (jb, tb), (ja, ta)):
+        close(b, a)
+
+
+SAMPLER_MODES = {                # tests/test_samplers.py MODES
+    "nearest": 1 | 2,
+    "nearest_mip": 1 | 2 | 4,
+    "clamp": (1 << 3) | (1 << 5),
+    "mirror": (2 << 3) | (2 << 5),
+    "mixed": 1 | (1 << 3) | (2 << 5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SAMPLER_MODES))
+def test_sample_general_matches_jax(name):
+    """The per-sampler path (filters, mip modes, wrap modes) against the
+    JAX package's _sample_general on one heap holding a custom-sampler and
+    a default-sampler texture; UVs cross the wrap boundaries, LODs span
+    magnification to level 3."""
+    from vk_renderer_tpu.scene.textures import TextureHeapBuilder
+    from vk_renderer_tpu.scene.types import TextureTable
+    from vk_renderer_tpu_torch.scene.types import textures_to_torch
+    rng = np.random.default_rng(len(name))
+    img = rng.integers(0, 256, size=(32, 32, 4), dtype=np.uint8)
+    b = TextureHeapBuilder()
+    b.add(img, srgb=True, mipmapped=True, sampler_mode=SAMPLER_MODES[name])
+    b.add(img[::-1], srgb=False, mipmapped=True)
+    table = b.build()
+    assert table.has_custom_samplers
+    jtable = TextureTable(**{
+        k: (jnp.asarray(getattr(table, k)) if k != "has_custom_samplers"
+            else table.has_custom_samplers)
+        for k in ("texels", "mip_offsets", "mip_sizes", "n_mips",
+                  "srgb_flags", "sampler_modes", "has_custom_samplers")})
+    ttable = textures_to_torch(table, "cpu")
+    shape = (40, 48)
+    tex_id = rng.integers(0, 2, size=shape).astype(np.int32)
+    u = rng.uniform(-1.4, 2.4, shape).astype(np.float32)
+    v = rng.uniform(-0.8, 1.9, shape).astype(np.float32)
+    lod = rng.uniform(-1.0, 3.0, shape)
+    d = np.stack([2.0 ** lod / 32.0 * rng.choice([-1, 1], shape),
+                  rng.uniform(-1e-3, 1e-3, shape),
+                  rng.uniform(-1e-3, 1e-3, shape),
+                  2.0 ** lod / 32.0]).astype(np.float32)
+    want = jtex.sample_trilinear(jtable, jnp.asarray(tex_id), jnp.asarray(u),
+                                 jnp.asarray(v), *map(jnp.asarray, d))
+    got = ttex.sample_trilinear(ttable, T(tex_id), T(u), T(v), *map(T, d))
+    for a, b in zip(want, got):
+        close(b, a)
+    for c in (0, 3):                     # the general path itself
+        (g,) = ttex._sample_general(ttable, T(tex_id), T(u), T(v),
+                                    *map(T, d), channels=(c,))
+        close(g, want[c])

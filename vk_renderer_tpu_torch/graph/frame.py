@@ -1,24 +1,23 @@
 """The per-frame render graph, eager PyTorch.
 
-Port of vk_renderer_tpu/graph/frame.py (``render_frame``, frame.py:863)
-for the opaque + alpha-masked + CSM-shadow + skybox + tonemap frame.  Pass
-order and semantics match the reference frame (VulkanEngine::draw,
+Port of vk_renderer_tpu/graph/frame.py (``render_frame``, frame.py:863).
+Pass order and semantics match the reference frame (VulkanEngine::draw,
 src/vk_engine_run.cpp:68-193):
 
   shadow maps -> background gradient/clear -> opaque geometry raster ->
-  alpha-masked k-buffer peel -> G-buffer + PBR shading -> skybox (fills
-  depth==1 pixels) -> tonemap.
+  alpha-masked k-buffer peel -> G-buffer + PBR or flat shading -> skybox
+  (fills depth==1 pixels) -> additive transparent peels -> tonemap.
 
-Both raster passes run the hand-written CUDA kernels on the GPU (through
-ops/raster.py; plain PyTorch versions on the CPU).  The JAX package's
-TPU-only layout forms — packed and alpha row tables, alpha states and
-quads, ``optimization_barrier`` pins, compaction tier ladders for the
-masked/sky/shadow passes, the penumbra classifier, ``pair_cap`` and the
-packed frame vector — are documented there as bit-identical to their plain
-forms and are left out: the masked accept, skybox and shadow filter run on
-exactly the pixels that need them.  Scenes with transparent (BLEND)
-triangles raise NotImplementedError: the additive transparent pass is the
-next slice of the port.
+The raster passes run the hand-written CUDA kernels on the GPU (through
+ops/raster.py), and so do the gradient background and the tonemap
+(ops/post.py); on the CPU each runs its plain PyTorch version.  The JAX
+package's TPU-only layout forms — packed and alpha row tables, alpha
+states and quads, ``optimization_barrier`` pins, compaction tier ladders
+for the masked/transparent/sky/shadow passes, the penumbra classifier,
+``pair_cap`` and the packed frame vector — are documented there as
+bit-identical to their plain forms and are left out: the masked accept,
+transparent shading, skybox and shadow filter run on exactly the pixels
+that need them, so ``sparse_overflow`` and ``fallback_px`` stay 0.
 """
 
 from __future__ import annotations
@@ -37,7 +36,7 @@ NUM_CASCADES = 4
 # postprocess registry: name -> (f32[3, H, W] -> f32[3, H, W]); the
 # reference's only registered pass is tonemap (vk_engine_init.cpp:596)
 POSTPROCESS_REGISTRY = {
-    "tonemap": post.tonemap_xla,
+    "tonemap": post.tonemap,
 }
 
 
@@ -54,6 +53,7 @@ class FrameConfig:
     # the rec_* caps) — overflow is counted in bin_overflow
     cap_opaque: int = 16384
     cap_masked: int = 4096
+    cap_transparent: int = 256
     # masked (alpha-cutoff) k-buffer depth: round 0 keeps masked_peels
     # layers; deeper reject chains resolve in masked_tail_rounds
     # continuation rounds of masked_tail_peels layers each over the same
@@ -61,10 +61,13 @@ class FrameConfig:
     masked_peels: int = 10
     masked_tail_rounds: int = 3
     masked_tail_peels: int = 6
+    # additive transparent depth peels; one more layer is the probe
+    transparent_peels: int = 2
     # occupancy-packed record caps (auto-shrunk to scene size);
     # truncation is counted in bin_overflow
     rec_opaque: int = 4096
     rec_masked: int = 2048
+    rec_transparent: int = 1024
     rec_shadow: int = 5120
     # big-triangle capacity for EXACT big binning and the bbox-pair span
     # threshold above which a triangle takes the exact path
@@ -72,7 +75,7 @@ class FrameConfig:
     max_span: int = 16
     shadow_max_span: int = 16
     shadow_big_cap: int = 1024
-    shading: str = "pbr"             # "pbr" (mesh_pbr.frag); flat is next
+    shading: str = "pbr"    # "pbr" (mesh_pbr.frag) | "flat" (mesh.frag)
     # compiles the shadow SUBSYSTEM in; the per-frame on/off and filter
     # mode ride the scene data's UBO flag channels
     enable_shadows: bool = False     # vk_engine.h:116 default off
@@ -162,13 +165,6 @@ def render_frame(scene, scene_data: dict, settings: dict, cfg: FrameConfig):
 
     Returns dict: color f32[3, H, W], depth f32[H, W], stats (dict of i32
     scalars), stats_vec i32[6], color_u8 u8[H, W, 3]."""
-    if scene.n_transparent > 0:
-        raise NotImplementedError(
-            "scenes with transparent (BLEND) triangles need the additive "
-            "transparent pass, which the next slice of the port brings")
-    if cfg.shading != "pbr":
-        raise NotImplementedError(
-            f"shading={cfg.shading!r}: flat shading is the next slice")
     dev = scene.positions[0].device
     if cfg.enable_shadows:
         _, tri_visible = _visible_tris(scene, scene_data)
@@ -237,6 +233,10 @@ def render_view(scene, scene_data: dict, settings: dict, cfg: FrameConfig,
         bounds.append((scene.n_opaque, scene.n_opaque + n_mvis))
         caps.append(cfg.cap_masked)
         rec_caps.append(cfg.rec_masked)
+    if scene.n_transparent > 0:
+        bounds.append((scene.n_opaque + scene.n_masked, n_tris))
+        caps.append(cfg.cap_transparent)
+        rec_caps.append(cfg.rec_transparent)
     plans = list(raster.plan_view_buckets(
         st, tuple(bounds), w, h, cfg.tile_w, cfg.tile_h, tuple(caps),
         tuple(rec_caps), big_cap=cfg.big_cap, max_span=cfg.max_span))
@@ -261,26 +261,35 @@ def render_view(scene, scene_data: dict, settings: dict, cfg: FrameConfig,
     gbuf = _build_gbuffer(scene, scene_data, tid, rows, vattr, vpos)
 
     # ---- shading (planar channels)
+    shader = _shader(cfg)
     shadow_mode, shadows_on = _shadow_flags(scene_data, cfg)
-    rgb, _alpha = shade.shade_pbr(gbuf, scene, scene_data, shadow_maps,
-                                  shadow_mode, shadows_on)
+    rgb, _alpha = shader(gbuf, scene, scene_data, shadow_maps, shadow_mode,
+                         shadows_on)
 
     # ---- compose onto background (clear (0,0,0) or gradient;
     #      vk_engine_run.cpp:246-248)
-    blend = (torch.arange(h, dtype=torch.float32, device=dev) / h)[:, None]
-    covered = tid >= 0
-    color = []
-    for c in range(3):
-        bg_c = (settings["bg_top"][c] * (1.0 - blend)
-                + settings["bg_bottom"][c] * blend) \
-            * settings["enable_background"]
-        color.append(torch.where(covered, rgb[c], bg_c))
+    bg = post.gradient(h, w, settings["bg_top"], settings["bg_bottom"],
+                       extent_h=h) * settings["enable_background"]
+    color = torch.where((tid >= 0)[None], torch.stack(list(rgb)), bg)
+    color = tuple(color)
 
     # ---- skybox fills untouched depth (vk_engine_run.cpp:313)
     if cfg.use_skybox and scene.cubemap is not None:
         color = skybox.composite_skybox(color, depth, scene.cubemap,
                                         scene_data["view"],
                                         scene_data["proj"])
+
+    # ---- additive transparent pass (depth peeling, order-independent sum)
+    if scene.n_transparent > 0:
+        plan_t = raster.prepare_records(plans.pop(0), padded, st["bbox"], w,
+                                        cfg.tile_w, cfg.tile_h)
+        # bin_overflow folds in the opaque and masked plans only, as the
+        # JAX frame does (frame.py:1087-1096); each plan repeats the view's
+        # big-triangle drop, so a third copy would break stats parity
+        color, peel_t = _transparent_pass(scene, scene_data, cfg, plan_t,
+                                          rows, vattr, vpos, depth,
+                                          shadow_maps, color)
+        peel_overflow = peel_overflow + peel_t
 
     # ---- postprocess chain (vk_engine_init.cpp:554-596), then [3, H, W]
     color = torch.stack(list(color))
@@ -327,10 +336,18 @@ def _build_vertex_rows(scene, world_pos, world_nrm):
     return vattr, vpos
 
 
-def _build_gbuffer(scene, scene_data, tid, rows, vattr, vpos):
-    """Planar [H, W] G-buffer (see ops/shade.py for the key list)."""
+def _shader(cfg: FrameConfig):
+    """mesh_pbr.frag or mesh.frag (frame.py:1033)."""
+    return shade.shade_pbr if cfg.shading == "pbr" else shade.shade_flat
+
+
+def _build_gbuffer(scene, scene_data, tid, rows, vattr, vpos, px=None,
+                   py=None):
+    """Planar G-buffer (see ops/shade.py for the key list): dense [H, W],
+    or at the explicit pixel centres ``px``/``py`` of a pixel list."""
     g = {}
-    weights = interp.interpolation_weights_rows(tid, rows[0], rows[1])
+    weights = interp.interpolation_weights_rows(tid, rows[0], rows[1],
+                                                px, py)
     # one corner-gather of the attribute rows serves both the plain
     # interpolation and the UV-derivative quotient rule
     corners = interp.gather_corners(vattr, weights["vidx"])
@@ -468,3 +485,48 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     depth = from_tiles(depth_t, rows_t, cols_t)[:h, :w]
     tid = from_tiles(tid_t, rows_t, cols_t)[:h, :w]
     return depth, tid, peel_ovf
+
+
+def _transparent_pass(scene, scene_data, cfg: FrameConfig, plan_t, rows,
+                      vattr, vpos, depth, shadow_maps, color):
+    """Additive-blend transparent geometry (frame.py:1303-1384, the
+    k-raster form): srcAlpha*src + dst with mesh_pbr's alpha = 1, i.e.
+    ONE/ONE (vk_pipelines.cpp:108-118), depth test LESS_OR_EQUAL against
+    the opaque + masked depth, no depth write.  One k-buffer pass over the
+    bucket's records yields ``transparent_peels`` layers plus the probe
+    layer; each peel is shaded on exactly its covered pixels and its
+    undiscarded colour (albedo alpha >= 0.5, mesh_pbr.frag:193) added in
+    peel order.  A pixel the probe layer still covers counts in
+    ``peel_overflow``.
+
+    The layers come back in tile space and are cropped to the frame before
+    shading and the probe count: tile rows past the frame's last row are
+    padding that a triangle's edge functions can still cover.
+    Returns (color planes, peel_overflow)."""
+    w, h = cfg.width, cfg.height
+    th, tw = cfg.tile_h, cfg.tile_w
+    rows_t, cols_t = cdiv(h, th), cdiv(w, tw)
+    bound_t = to_tiles(depth, rows_t, cols_t, th, tw, 2.0)
+    layers = raster.rasterize_plan_k_tiled(
+        plan_t, scene.num_triangles, cfg.transparent_peels + 1, bound_t,
+        tile_w=tw, tile_h=th)
+    tids = [from_tiles(lt, rows_t, cols_t)[:h, :w].reshape(-1)
+            for _, lt in layers]
+    shader = _shader(cfg)
+    shadow_mode, shadows_on = _shadow_flags(scene_data, cfg)
+    color = [c.reshape(-1) for c in color]
+    for tid in tids[:-1]:
+        sel = torch.nonzero(tid >= 0).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        px = (sel % w).to(torch.float32) + 0.5
+        py = (sel // w).to(torch.float32) + 0.5
+        gbuf = _build_gbuffer(scene, scene_data, tid[sel], rows, vattr, vpos,
+                              px, py)
+        rgb, alpha = shader(gbuf, scene, scene_data, shadow_maps,
+                            shadow_mode, shadows_on)
+        keep = alpha >= 0.5                      # the discard still applies
+        color = [cf.index_add(0, sel, torch.where(keep, rc, 0.0))
+                 for cf, rc in zip(color, rgb)]
+    peel_ovf = (tids[-1] >= 0).sum(dtype=torch.int32)
+    return tuple(c.reshape(h, w) for c in color), peel_ovf

@@ -34,3 +34,19 @@ def from_tiles(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
     _, th, tw = x.shape
     return (x.reshape(rows, cols, th, tw).permute(0, 2, 1, 3)
             .reshape(rows * th, cols * tw))
+
+
+def max_ulp(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units in the last place between two f32
+    tensors of one shape (0 where both are NaN, 2^32 where only one is;
+    +0 and -0 are 0 apart).  Checks a kernel against its plain version."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    if a.numel() == 0:
+        return 0
+    d = (ordered(a) - ordered(b)).abs()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    d = torch.where(na & nb, 0, torch.where(na ^ nb, 1 << 32, d))
+    return int(d.max())

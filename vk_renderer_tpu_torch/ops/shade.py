@@ -1,9 +1,11 @@
-"""Fragment shading: Cook-Torrance PBR and the shadow filter library.
+"""Fragment shading: Cook-Torrance PBR, flat Lambert and the shadow
+filter library.
 
 Port of vk_renderer_tpu/ops/shade.py (the dense-filter path):
 - shaders/mesh_pbr.frag:159-226 — GGX distribution, Schlick-GGX geometry
   (k=(r+1)^2/8), Schlick Fresnel, F0=mix(0.04, albedo, metallic),
   kD scaled by (1-metallic), out = ambient*albedo + Lo*(1-shadow),
+- shaders/mesh.frag:124-182 — Lambert + ambient (``shade_flat``),
 - shaders/mesh_pbr.frag:37-156 — shadow filters: Hard 1-tap, PCF 3x3,
   PCSS (16-tap Poisson blocker search + 16-tap Poisson PCF), CSM =
   cascade-select + PCSS.  Bias 5e-4, biasMat NDC->UV remap.
@@ -270,4 +272,41 @@ def shade_pbr(gbuf: dict, scene, scene_data: dict, shadow_maps,
     out_r = amb[0] * alb_r + lo_r * lit
     out_g = amb[1] * alb_g + lo_g * lit
     out_b = amb[2] * alb_b + lo_b * lit
+    return (out_r, out_g, out_b), at_a
+
+
+def shade_flat(gbuf: dict, scene, scene_data: dict, shadow_maps,
+               shadow_mode: int, enable_shadows: bool):
+    """mesh.frag main (124-182): Lambert + ambient with the same shadow
+    library and alpha handling (shade.py:777-840, dense filter).
+    Returns ((r, g, b), albedo_alpha), all planar."""
+    mrow = torch.stack(
+        [scene.mat_tex_ids[:, 0].to(torch.float32),
+         scene.mat_color_factors[:, 0], scene.mat_color_factors[:, 1],
+         scene.mat_color_factors[:, 2]], dim=-1)[gbuf["mat_id"].long()]
+    albedo_id = mrow[..., 0].to(torch.int32)
+    cf_r, cf_g, cf_b = mrow[..., 1], mrow[..., 2], mrow[..., 3]
+    at_r, at_g, at_b, at_a = tex.sample_trilinear(
+        scene.textures, albedo_id, gbuf["u"], gbuf["v"],
+        gbuf["dudx"], gbuf["dvdx"], gbuf["dudy"], gbuf["dvdy"])
+    col_r = gbuf["cr"] * at_r * cf_r
+    col_g = gbuf["cg"] * at_g * cf_g
+    col_b = gbuf["cb"] * at_b * cf_b
+
+    nx, ny, nz = _normalize3(gbuf["nx"], gbuf["ny"], gbuf["nz"])
+    sun = scene_data["sunlight_direction"]
+    inv_sun = torch.rsqrt(torch.clamp(
+        sun[0] ** 2 + sun[1] ** 2 + sun[2] ** 2, min=1e-40))
+    lx, ly, lz = -sun[0] * inv_sun, -sun[1] * inv_sun, -sun[2] * inv_sun
+    n_dot_l = torch.clamp(nx * lx + ny * ly + nz * lz, min=0.0)
+
+    shadow = compute_shadow_factor(shadow_maps, gbuf["wx"], gbuf["wy"],
+                                   gbuf["wz"], gbuf["view_z"], scene_data,
+                                   shadow_mode, enable_shadows)
+    lit = 1.0 - shadow
+    rad = scene_data["sunlight_color"]
+    amb = scene_data["ambient_color"]
+    out_r = n_dot_l * col_r * rad[0] * lit + amb[0] * col_r
+    out_g = n_dot_l * col_g * rad[1] * lit + amb[1] * col_g
+    out_b = n_dot_l * col_b * rad[2] * lit + amb[2] * col_b
     return (out_r, out_g, out_b), at_a

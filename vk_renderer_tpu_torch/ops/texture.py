@@ -16,7 +16,9 @@ The heap is one i32 word per texel (the JAX package's quad interleave,
 ShadowRows and quad-row cubemap are TPU gather-cost layouts of the same
 words: every bilinear here gathers its four corners directly, with the
 same REPEAT / clamp arithmetic, so the sampled values are identical).
-Scenes with custom glTF samplers are not supported yet.
+Scenes whose glTF samplers differ from the default take the per-sampler
+path (``_sample_general``: NEAREST / LINEAR filters and mip modes, REPEAT /
+CLAMP_TO_EDGE / MIRRORED_REPEAT wrap).
 """
 
 from __future__ import annotations
@@ -122,15 +124,101 @@ def compute_lod(textures, tex_id, dudx, dvdx, dudy, dvdy):
         max_level
 
 
+WRAP_REPEAT, WRAP_CLAMP, WRAP_MIRROR = 0, 1, 2
+
+
+def _wrap_index(i, n, wmode):
+    """Per-texel-index Vulkan address modes (wmode i32 planar):
+    0 REPEAT (mod), 1 CLAMP_TO_EDGE (clip), 2 MIRRORED_REPEAT
+    (fold each period; Vulkan's per-index transform)."""
+    rep = torch.remainder(i, n)
+    clp = torch.minimum(torch.clamp(i, min=0), n - 1)
+    m = torch.remainder(i, 2 * n)
+    mir = torch.where(m >= n, 2 * n - 1 - m, m)
+    return torch.where(wmode == WRAP_CLAMP, clp,
+                       torch.where(wmode == WRAP_MIRROR, mir, rep))
+
+
+def _sample_general(textures, tex_id, u, v, dudx, dvdx, dudy, dvdy,
+                    channels):
+    """Per-sampler-state sampling (texture.py:174-246): honors the glTF
+    sampler the reference parses at src/vk_loader.cpp:253-270 — mag/min
+    NEAREST vs LINEAR, mipmap mode NEAREST vs LINEAR, REPEAT /
+    CLAMP_TO_EDGE / MIRRORED_REPEAT wrap per axis (mode bits:
+    scene/textures.gltf_sampler_mode).  Taken only for scenes with a
+    non-default sampler (TextureTable.has_custom_samplers).
+
+    Vulkan semantics: filter = magFilter where lambda <= 0 else
+    minFilter; NEAREST filtering reads texel floor(u*w) (no half-texel
+    shift); mipmap NEAREST level = ceil(lambda + 0.5) - 1.  NEAREST
+    filtering and NEAREST mip selection fold into the bilinear /
+    two-level form as degenerate cases (fx = 0, l1 = l0), so one code
+    path serves every mode combination."""
+    w0, h0, max_level, srgb, w0i, h0i, base = _meta_take(textures, tex_id)
+    mode = textures.sampler_modes[tex_id.long()]
+    mag_n = (mode & 1) > 0
+    min_n = (mode & 2) > 0
+    mip_n = (mode & 4) > 0
+    wrap_s = (mode >> 3) & 3
+    wrap_t = (mode >> 5) & 3
+
+    lam = _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy)
+    f_nearest = torch.where(lam <= 0.0, mag_n, min_n)
+    max_l = max_level.to(torch.int32)
+    # mip level(s): NEAREST folds to l1 == l0, frac = 0
+    d_near = torch.minimum(torch.clamp(
+        torch.ceil(lam + 0.5).to(torch.int32) - 1, min=0), max_l)
+    l0 = torch.where(mip_n, d_near, torch.floor(lam).to(torch.int32))
+    l1 = torch.where(mip_n, d_near, torch.minimum(l0 + 1, max_l))
+    frac = torch.where(mip_n, 0.0, lam - torch.floor(lam))
+
+    def level(li):
+        off, wi, hi = _desc_from_meta(base, w0i, h0i, li)
+        wf = wi.to(torch.float32)
+        hf = hi.to(torch.float32)
+        xb = u * wf - 0.5
+        yb = v * hf - 0.5
+        xn = torch.floor(u * wf)
+        yn = torch.floor(v * hf)
+        x0 = torch.where(f_nearest, xn, torch.floor(xb)).to(torch.int32)
+        y0 = torch.where(f_nearest, yn, torch.floor(yb)).to(torch.int32)
+        fx = torch.where(f_nearest, 0.0, xb - torch.floor(xb))
+        fy = torch.where(f_nearest, 0.0, yb - torch.floor(yb))
+        i0 = _wrap_index(x0, wi, wrap_s)
+        i1 = _wrap_index(x0 + 1, wi, wrap_s)
+        j0 = _wrap_index(y0, hi, wrap_t)
+        j1 = _wrap_index(y0 + 1, hi, wrap_t)
+        row0 = off.long() + (j0 * wi).long()
+        row1 = off.long() + (j1 * wi).long()
+        texels = textures.texels
+        p00 = texels[row0 + i0.long()]
+        p10 = texels[row0 + i1.long()]
+        p01 = texels[row1 + i0.long()]
+        p11 = texels[row1 + i1.long()]
+        out = []
+        for (t00, t10, t01, t11) in zip(_unpack_rgba8(p00, srgb, channels),
+                                        _unpack_rgba8(p10, srgb, channels),
+                                        _unpack_rgba8(p01, srgb, channels),
+                                        _unpack_rgba8(p11, srgb, channels)):
+            top = t00 + (t10 - t00) * fx
+            bot = t01 + (t11 - t01) * fx
+            out.append(top + (bot - top) * fy)
+        return tuple(out)
+
+    c0 = level(l0)
+    c1 = level(l1)
+    return tuple(a + (b - a) * frac for a, b in zip(c0, c1))
+
+
 def sample_trilinear(textures, tex_id, u, v, dudx, dvdx, dudy, dvdy,
                      channels=(0, 1, 2, 3)):
-    """Full trilinear sample with the default sampler.  All per-pixel args
-    planar (any matching shape).  Returns a tuple of planes for the
-    requested channels."""
+    """Full trilinear sample.  All per-pixel args planar (any matching
+    shape).  Returns a tuple of planes for the requested channels.
+    Scenes carrying a non-default glTF sampler (has_custom_samplers)
+    route through the per-sampler path, _sample_general."""
     if textures.has_custom_samplers:
-        raise NotImplementedError(
-            "custom glTF samplers are not ported yet (the JAX package's "
-            "texture._sample_general)")
+        return _sample_general(textures, tex_id, u, v, dudx, dvdx, dudy,
+                               dvdy, channels)
     w0, h0, max_level, srgb, w0b, h0b, base = _meta_take(textures, tex_id)
     lam = _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy)
     l0 = torch.floor(lam).to(torch.int32)

@@ -149,6 +149,28 @@ def _heap_words(tex) -> np.ndarray:
     return np.ascontiguousarray(texels).view(np.int32)
 
 
+def textures_to_torch(tex, device) -> TextureTable:
+    """A host TextureTable (either package's) -> the device table: one
+    i32 word per texel and i32 descriptor tables."""
+    import torch
+
+    def put(x):
+        a = np.ascontiguousarray(np.asarray(x))
+        return torch.from_numpy(a.copy()).to(device).to(torch.int32)
+
+    modes = getattr(tex, "sampler_modes", None)
+    if modes is None:
+        modes = np.zeros(np.asarray(tex.n_mips).shape, np.int32)
+    return TextureTable(
+        texels=put(_heap_words(tex)),
+        mip_offsets=put(tex.mip_offsets),
+        mip_sizes=put(tex.mip_sizes),
+        n_mips=put(tex.n_mips),
+        srgb_flags=put(tex.srgb_flags),
+        sampler_modes=put(modes),
+        has_custom_samplers=bool(tex.has_custom_samplers))
+
+
 def scene_to_torch(host, device) -> SceneArrays:
     """Host ``SceneArrays`` (this package's, or the JAX package's
     ``SceneBuilder.build()`` output before ``device_put`` — read by
@@ -170,20 +192,8 @@ def scene_to_torch(host, device) -> SceneArrays:
         x = np.asarray(x)
         return tuple(put(x[:, c], dtype) for c in range(x.shape[1]))
 
-    tex = host.textures
-    new_tex = None
-    if tex is not None:
-        modes = getattr(tex, "sampler_modes", None)
-        if modes is None:
-            modes = np.zeros(np.asarray(tex.n_mips).shape, np.int32)
-        new_tex = TextureTable(
-            texels=put(_heap_words(tex)),
-            mip_offsets=put(tex.mip_offsets, torch.int32),
-            mip_sizes=put(tex.mip_sizes, torch.int32),
-            n_mips=put(tex.n_mips, torch.int32),
-            srgb_flags=put(tex.srgb_flags, torch.int32),
-            sampler_modes=put(modes, torch.int32),
-            has_custom_samplers=bool(tex.has_custom_samplers))
+    new_tex = (None if host.textures is None
+               else textures_to_torch(host.textures, device))
     cubemap = None
     if host.cubemap is not None:
         cubemap = put(pack_rgb9e5(host.cubemap))
