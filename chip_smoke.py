@@ -15,12 +15,16 @@ Phases, each printed as one JSON object on its own line:
      mean of the timed frames, with every kernel's launch count over that
      run; bin/peel/sparse overflow must be 0,
   5. kernels: each CUDA kernel on the bench frame's own inputs (camera
-     opaque records at 1080p and one 2048^2 cascade for the depth
-     raster, masked round 0 for the k-buffer, the frame's HDR colour for
-     the tonemap, the frame's background colours at 1920x1080 for the
-     gradient) against its plain PyTorch version — the raster kernels bit
-     for bit, the post kernels within 2 ulp — with both times and the
-     bound (the least time the card could take for the same work),
+     opaque records at 1080p and all four 2048^2 cascades for the depth
+     raster, masked rounds 0 and 1 for the k-buffer, the frame's HDR
+     colour for the tonemap, the frame's background colours at 1920x1080
+     for the gradient) and both raster kernels on a heavy synthetic
+     stream (one 128x32 tile of 3,100 records, tests/raster_streams.py)
+     against its plain PyTorch version — the raster kernels bit for bit,
+     the post kernels within 2 ulp — with both times, the bound (the
+     least time the card could take for the same work), and for the
+     raster kernels the largest record count of one tile and of one
+     8-row band and the spread of their blocks' times (%globaltimer),
   6. parity: 480x272 frames rendered with the kernels against the same
      frames rendered with all four plain versions (PSNR >= 40 dB): the
      bench frame, and a transparent + flat-shaded sponza_like frame,
@@ -30,7 +34,8 @@ Phases, each printed as one JSON object on its own line:
      stats),
   8. transparent: sponza_like at 1920x1080, CSM mode 3, background and
      tonemap, from a camera facing a transparent pane — transparent layer
-     0 must cover pixels, every overflow counter must be 0,
+     0 must cover pixels, every overflow counter must be 0; then the
+     k-buffer kernel against its plain version on that pass's K=3 call,
   9. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
      the flat-shaded cube; each must return 0 with overflow counters 0.
 Phases 4, 8 and 9 each set every kernel's launch count to 0 just before
@@ -48,6 +53,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -60,6 +66,7 @@ TIMED_FRAMES = 5
 TRANSPARENT_FRAMES = 3
 KERNEL_REPS = 10
 POST_ULP = 2
+HEAVY_RECORDS = 3100
 RASTER_SRC = "vk_renderer_tpu_torch/csrc/raster.cu"
 POST_SRC = "vk_renderer_tpu_torch/csrc/post.cu"
 FIXTURE = "tests/fixtures/textured_box/scene.gltf"
@@ -88,6 +95,29 @@ def emit(obj) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of every kernel in an
+    ``nvcc -Xptxas -v`` log, by kernel name and template arguments."""
+    kernels = ("raster_depth_kernel", "raster_layers_kernel",
+               "plan_segments", "tonemap_kernel", "gradient_kernel")
+    pattern = re.compile(r"(%s)(I(?:Li\d+E)+E)?" % "|".join(kernels))
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            m = pattern.search(ln)
+            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            name = (m.group(1) + (f"<{','.join(args)}>" if args else "")
+                    if m else ln.split("'")[1])
+            spill = 0
+        elif "spill stores" in ln:
+            spill = sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill", ln))
+        elif "registers" in ln and name is not None:
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            out[name] = {"registers": regs, "spill_bytes": spill}
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -175,16 +205,13 @@ def bound(n_bytes: float, n_ops: float) -> dict:
             "bytes": int(n_bytes), "ops": int(n_ops)}
 
 
-def raster_work(args, outputs_per_px: int):
-    """(bytes, operations) one raster kernel call needs on these inputs:
-    each tile's records read once, the per-tile and per-pixel inputs read
-    once, the outputs written once; per record, the pixels of the tile
-    rows its triangle spans (the record's row range) times RASTER_OPS."""
+def _live_records(args):
+    """(tile of each live record slot, its f32 row-range field) of one
+    raster kernel call's record stream."""
     import torch
     from vk_renderer_tpu_torch.ops import raster_kernels as rk
     records, rec_start, counts = args[0], args[1], args[2]
-    planes = [a for a in args[3:5] if isinstance(a, torch.Tensor)]
-    n_tiles, th, tw = planes[0].shape
+    n_tiles = counts.shape[0]
     chunks = (counts.long() + rk.CHUNK - 1) // rk.CHUNK
     slot_tile = torch.repeat_interleave(torch.arange(n_tiles,
                                                      device=counts.device),
@@ -195,23 +222,72 @@ def raster_work(args, outputs_per_px: int):
                                 - chunks * rk.CHUNK, chunks * rk.CHUNK)
     live = local < counts.long()[slot_tile]
     rr = records.reshape(-1, rk.F_FIELDS)[first + local, 13].to(torch.int64)
+    return slot_tile[live], rr[live], chunks
+
+
+def raster_work(args, outputs_per_px: int):
+    """(bytes, operations) one raster kernel call needs on these inputs:
+    each tile's records read once, the per-tile and per-pixel inputs read
+    once, the outputs written once; per record, the pixels of the tile
+    rows its triangle spans (the record's row range) times RASTER_OPS.
+    That count is conservative for the culling kernels, which evaluate a
+    record only on the 8x4 footprints it may cover."""
+    import torch
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    planes = [a for a in args[3:5] if isinstance(a, torch.Tensor)]
+    n_tiles, th, tw = planes[0].shape
+    _, rr, chunks = _live_records(args)
     rows = torch.clamp((rr & 255) - (rr >> 8), min=0)
-    ops = float((rows * live).sum()) * tw * RASTER_OPS
+    ops = float(rows.sum()) * tw * RASTER_OPS
     px = n_tiles * th * tw
     n_bytes = (float(chunks.sum()) * rk.CHUNK * rk.F_FIELDS * 4
                + 8 * n_tiles + 4 * px * len(planes) + outputs_per_px * px)
     return n_bytes, ops
 
 
+def band_records_max(args) -> int:
+    """The most records one 8-row band of one tile must walk (records
+    whose row range meets the band): the work of the heaviest blocks."""
+    import torch
+    tile, rr, _ = _live_records(args)
+    th = args[3].shape[1]
+    r0, r1 = rr >> 8, rr & 255
+    best = 0
+    for lo in range(0, th, 8):
+        hit = (r1 > lo) & (r0 < lo + 8)
+        if bool(hit.any()):
+            best = max(best, int(torch.bincount(tile[hit]).max()))
+    return best
+
+
+def block_spread(kernel_fn, args, kw) -> dict:
+    """Per-block times of one launch (%globaltimer, microseconds): the
+    median, the 99th percentile and the largest, and the launch's span
+    from the first block's start to the last block's end."""
+    import torch
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    ns = rk.kernel_block_ns(kernel_fn, *args, **kw)
+    torch.cuda.synchronize()
+    took = (ns[:, 1] - ns[:, 0]).double() / 1e3
+    q = torch.quantile(took, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                          device=took.device))
+    return {"blocks": int(ns.shape[0]), "block_us_p50": float(q[0]),
+            "block_us_p99": float(q[1]), "block_us_max": float(took.max()),
+            "span_us": float(ns[:, 1].max() - ns[:, 0].min()) / 1e3}
+
+
 def compare_raster(name, shape_tag, kernel_fn, plain_fn, args, kw,
                    outputs_per_px):
     """Kernel vs plain version on the same inputs: bit-for-bit check of
-    depth and ids, max |depth difference|, both times and the bound."""
+    depth (as int32 bits, so -0.0 and +0.0 differ) and ids, max |depth
+    difference|, both times, the bound, the heaviest tile's and band's
+    record counts and the spread of the kernel's block times."""
     import torch
     kd, ki = kernel_fn(*args, **kw)
     pd, pi = plain_fn(*args, **kw)
     torch.cuda.synchronize()
-    same = bool(torch.equal(kd, pd) and torch.equal(ki, pi))
+    same = bool(torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+                and torch.equal(ki, pi))
     err = float((kd - pd).abs().max()) if kd.numel() else 0.0
     id_mismatch = int((ki != pi).sum())
     ms = graph_ms(lambda: kernel_fn(*args, **kw), KERNEL_REPS)
@@ -221,10 +297,12 @@ def compare_raster(name, shape_tag, kernel_fn, plain_fn, args, kw,
            "tiles": int(args[2].shape[0]),
            "records": int(args[0].shape[0]),
            "max_count": int(args[2].max()) if args[2].numel() else 0,
+           "max_band_records": band_records_max(args),
            "bit_exact": same, "max_abs_err": err, "max_ulp": None,
            "id_mismatches": id_mismatch, "ms": ms, "ms_eager": ms_eager,
            "plain_ms": plain_ms,
-           **bound(*raster_work(args, outputs_per_px)), "library_ms": None}
+           **bound(*raster_work(args, outputs_per_px)), "library_ms": None,
+           **block_spread(kernel_fn, args, kw)}
     emit(out)
     return out
 
@@ -273,6 +351,8 @@ def main() -> int:
         from vk_renderer_tpu_torch.scene.camera import Camera
         from vk_renderer_tpu_torch.scene.types import scene_to_torch
         from vk_renderer_tpu_torch.utils.image import psnr
+        sys.path.insert(0, os.path.join(os.getcwd(), "tests"))
+        from raster_streams import heavy_stream
     except ImportError as e:
         return fail(f"the port's package is missing ({e}); run from the "
                     "root of a checkout")
@@ -324,9 +404,7 @@ def main() -> int:
             log = os.path.splitext(lib_path)[0] + ".log"
             if os.path.exists(log):
                 with open(log) as f:
-                    ptxas[src] = " | ".join(
-                        ln.strip() for ln in f
-                        if "registers" in ln or "spill" in ln)
+                    ptxas[src] = ptxas_report(f.read())
         emit({"phase": "build", "ok": True, "sources": list(libs),
               "seconds": time.perf_counter() - t0, "ptxas": ptxas})
     except Exception as e:   # a build failure ends the run
@@ -398,15 +476,37 @@ def main() -> int:
             "raster_depth", f"camera_opaque_{WIDTH}x{HEIGHT}",
             rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
             *cam_calls[-1], outputs_per_px=8))
+        for c, call in enumerate(sh_calls):
+            checks["raster_depth"].append(compare_raster(
+                "raster_depth", f"shadow_cascade{c}_{SHADOW_SIZE}",
+                rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
+                *call, outputs_per_px=8))
+        for r, call in enumerate(rec_k.calls[:2]):
+            k_r = call[0][6]
+            floor_tag = "_floor" if call[0][4] is not None else ""
+            checks["raster_layers"].append(compare_raster(
+                "raster_layers",
+                f"masked_round{r}_{WIDTH}x{HEIGHT}_k{k_r}{floor_tag}",
+                rk.rasterize_layers_grid, rk.rasterize_layers_grid_plain,
+                *call, outputs_per_px=8 * k_r))
+        # the heavy synthetic stream: one 128x32 tile of HEAVY_RECORDS
+        # records (ties on chunk boundaries), two light tiles, one empty
+        hrec, hstart, hcounts = (torch.from_numpy(x).to(dev) for x in
+                                 heavy_stream(13, cfg.tile_h,
+                                              n=HEAVY_RECORDS))
+        hshape = (hcounts.shape[0], cfg.tile_h, cfg.tile_w)
+        hkw = {"tile_w": cfg.tile_w, "tile_h": cfg.tile_h}
         checks["raster_depth"].append(compare_raster(
-            "raster_depth", f"shadow_cascade0_{SHADOW_SIZE}",
+            "raster_depth", f"heavy_synthetic_{HEAVY_RECORDS}",
             rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
-            *sh_calls[0], outputs_per_px=8))
-        k0 = rec_k.calls[0][0][6]
+            (hrec, hstart, hcounts, torch.ones(hshape, device=dev),
+             torch.full(hshape, -1, dtype=torch.int32, device=dev)), hkw,
+            outputs_per_px=8))
         checks["raster_layers"].append(compare_raster(
-            "raster_layers", f"masked_round0_{WIDTH}x{HEIGHT}_k{k0}",
+            "raster_layers", f"heavy_synthetic_{HEAVY_RECORDS}_k16",
             rk.rasterize_layers_grid, rk.rasterize_layers_grid_plain,
-            *rec_k.calls[0], outputs_per_px=8 * k0))
+            (hrec, hstart, hcounts, torch.full(hshape, 2.0, device=dev),
+             None, -1, 16), hkw, outputs_per_px=8 * 16))
         hdr = rec_t.calls[0][0][0]
         n = hdr.numel()
         checks["tonemap"].append(compare_post(
@@ -422,10 +522,14 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("kernel check raised")
+    expected = {"raster_depth": 1 + len(sh_calls) + 1, "raster_layers": 3}
     for name in ("raster_depth", "raster_layers"):
         cs = checks[name]
-        if not cs or not all(c["bit_exact"] for c in cs):
-            failures.append(f"{name} disagrees with its plain version")
+        if len(cs) != expected[name] or not all(c["bit_exact"] for c in cs):
+            failures.append(f"{name} disagrees with its plain version "
+                            f"(or a check is missing)")
+    if len(sh_calls) != 4:
+        failures.append(f"{len(sh_calls)} cascade calls recorded, not 4")
     for name in ("tonemap", "gradient"):
         cs = checks[name]
         if not cs or not all(c["max_ulp"] <= POST_ULP for c in cs):
@@ -550,6 +654,14 @@ def main() -> int:
         layer0 = from_tiles(ids[0], cdiv(HEIGHT, tcfg.tile_h),
                             cdiv(WIDTH, tcfg.tile_w))[:HEIGHT, :WIDTH]
         cover0 = int((layer0 != targs[5]).sum())          # 5: sentinel
+        t_check = compare_raster(
+            "raster_layers", f"transparent_{WIDTH}x{HEIGHT}_k{k_t}",
+            rk.rasterize_layers_grid, rk.rasterize_layers_grid_plain, targs,
+            tkw, outputs_per_px=8 * k_t)
+        checks["raster_layers"].append(t_check)
+        if not t_check["bit_exact"]:
+            failures.append("raster_layers disagrees with its plain version "
+                            "on the transparent pass")
         del rec_l, targs, tkw, ids, layer0
         emit({"phase": "transparent", "scene": "sponza_like",
               "triangles": int(like_host.num_triangles),

@@ -22,7 +22,8 @@ from vk_renderer_tpu_torch.ops import setup
 from vk_renderer_tpu_torch.ops.common import max_ulp
 
 from raster_streams import (COLS, H, N_TILES, R, SENT, TH, TW, W,
-                            clip_scene, pad_records, synthetic_stream)
+                            clip_scene, heavy_stream, pad_records,
+                            synthetic_stream, whole_and_tiny_stream)
 
 
 @pytest.fixture
@@ -52,12 +53,24 @@ def _scene_stream():
             plan["counts"].reshape(-1).numpy())
 
 
-@pytest.fixture(params=["scene", "synthetic"])
+STREAMS = {
+    "scene": _scene_stream,
+    "synthetic": synthetic_stream,
+    # one tile of 3,100 records (ties on chunk and segment boundaries,
+    # -0.0 against +0.0), two light tiles and an empty one
+    "heavy": lambda: heavy_stream(11, TH),
+    # whole-tile records (nothing culled) among tiny ones (nearly all)
+    "whole_and_tiny": lambda: whole_and_tiny_stream(12, TH),
+}
+
+
+def _to(dev, stream):
+    return [torch.from_numpy(np.asarray(x)).to(dev) for x in stream]
+
+
+@pytest.fixture(params=list(STREAMS))
 def stream(request, dev):
-    rec, start, counts = (_scene_stream() if request.param == "scene"
-                          else synthetic_stream())
-    return [torch.from_numpy(np.asarray(x)).to(dev)
-            for x in (rec, start, counts)]
+    return _to(dev, STREAMS[request.param]())
 
 
 def _tile_planes(dev, seed, values):
@@ -67,10 +80,13 @@ def _tile_planes(dev, seed, values):
 
 
 def _same(kernel_out, plain_out):
+    """Ids equal, and depths equal bit for bit (as int32, so that -0.0
+    and +0.0 differ)."""
     (kd, ki), (pd, pi) = kernel_out, plain_out
     torch.cuda.synchronize()
     assert torch.equal(ki, pi), f"{int((ki != pi).sum())} ids differ"
-    assert torch.equal(kd, pd), float((kd - pd).abs().max())
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32)), \
+        float((kd - pd).abs().max())
 
 
 @pytest.mark.cuda
@@ -86,6 +102,51 @@ def test_depth_kernel_matches_plain(stream, dev, peel):
     _same(rk.rasterize_depth_grid(*args, tile_h=TH),
           rk.rasterize_depth_grid_plain(*args, tile_h=TH))
     assert rk.rasterize_depth_grid.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scene", "heavy", "whole_and_tiny"])
+def test_depth_kernel_init_two(dev, name):
+    """A z-buffer at 2.0: there an uncovered record that hits the band
+    (zc = 2.0 <= 2.0) takes the id, also where the kernel culled it."""
+    stream = _to(dev, STREAMS[name]())
+    init_d = torch.full((N_TILES, TH, TW), 2.0, device=dev)
+    init_i = torch.full((N_TILES, TH, TW), SENT, dtype=torch.int32,
+                        device=dev)
+    args = (*stream, init_d, init_i)
+    want = rk.rasterize_depth_grid_plain(*args, tile_h=TH)
+    _same(rk.rasterize_depth_grid(*args, tile_h=TH), want)
+    assert bool(((want[0] == 2.0) & (want[1] != SENT)).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_layers", range(1, 17))
+@pytest.mark.parametrize("name", ["heavy", "whole_and_tiny"])
+def test_kbuffer_kernel_every_depth(dev, name, k_layers):
+    """K = 1..16 on the heavy and the whole-and-tiny streams, with bounds
+    of 2.0 (real entries at depth 2.0 beside empty slots) and a floor."""
+    rec, start, counts = _to(dev, STREAMS[name]())
+    bound = _tile_planes(dev, 5, [0.65, 1.0, 2.0])
+    floor = _tile_planes(dev, 6, [-1.0, 0.0, 0.15, 0.3])
+    args = (rec, start, counts, bound, floor, SENT, k_layers)
+    _same(rk.rasterize_layers_grid(*args, tile_h=TH),
+          rk.rasterize_layers_grid_plain(*args, tile_h=TH))
+
+
+@pytest.mark.cuda
+def test_block_timer_launch_is_uncounted(dev):
+    rec, start, counts = _to(dev, STREAMS["heavy"]())
+    init_d = torch.ones((N_TILES, TH, TW), device=dev)
+    init_i = torch.full((N_TILES, TH, TW), SENT, dtype=torch.int32,
+                        device=dev)
+    before = rk.rasterize_depth_grid.launches
+    ns = rk.kernel_block_ns(rk.rasterize_depth_grid, rec, start, counts,
+                            init_d, init_i, tile_h=TH)
+    torch.cuda.synchronize()
+    assert rk.rasterize_depth_grid.launches == before
+    assert ns.shape == (rk._lib().vkr_raster_blocks(N_TILES, TH, 0), 2)
+    took = ns[:, 1] - ns[:, 0]
+    assert bool((took >= 0).all()) and int(took.max()) > 0
 
 
 @pytest.mark.cuda
@@ -118,6 +179,12 @@ def test_kernel_wrappers_reject_bad_arguments(dev):
     with pytest.raises(TypeError):
         rk.rasterize_depth_grid(rec, start, counts, bound,
                                 bound.to(torch.int64), tile_h=TH)
+    # the bulk copies need 16-byte aligned records
+    flat = torch.zeros(rec.numel() + 1, device=dev)
+    shifted = flat[1:].reshape(rec.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        rk.rasterize_layers_grid(shifted, start, counts, bound, None, SENT,
+                                 2, tile_h=TH)
 
 
 POST_SHAPES = [(1, 1), (7, 130), (1080, 1920)]

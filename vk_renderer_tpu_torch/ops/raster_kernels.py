@@ -25,6 +25,12 @@ they fit at 1080p and at 2048^2:
   layer, a strictly nearer fragment shifts the deeper layers down; empty
   layers are (2.0, sentinel).
 
+The CUDA kernels cull (record, pixel footprint) pairs exactly and cut the
+heaviest tiles' streams into segments whose results they merge exactly;
+``footprint_may_cover``, ``merge_depth_segments`` and
+``merge_layer_segments`` at the end of this module are the plain mirrors
+of those rules, which the CPU tests hold against the plain versions.
+
 The CUDA library builds at first use (nvcc, sm_90a) into the package's
 ignored build directory and loads with ctypes; nothing CUDA-specific runs
 at import.
@@ -127,10 +133,15 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("raster.cu", nvcc_command())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vkr_raster_depth.restype = i
-    lib.vkr_raster_depth.argtypes = [p, p, p, p, p, p, p, p, i, i, p]
+    lib.vkr_raster_depth.argtypes = [p, p, p, p, p, p, p, p, i, i, p, p, p]
     lib.vkr_raster_layers.restype = i
-    lib.vkr_raster_layers.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p]
+    lib.vkr_raster_layers.argtypes = [p, p, p, p, p, p, p, i, i, i, i, p, p,
+                                      p]
+    lib.vkr_raster_workspace.restype = ctypes.c_longlong
+    lib.vkr_raster_workspace.argtypes = [i, i, i]
     lib.vkr_max_layers.restype = i
+    lib.vkr_raster_blocks.restype = i
+    lib.vkr_raster_blocks.argtypes = [i, i, i]
     return lib
 
 
@@ -167,7 +178,19 @@ def _check_stream_args(records, rec_start, counts, tile_w, tile_h):
            (records.shape[0], (CHUNK * F_FIELDS) // 128, 128), dev)
     _check("rec_start", rec_start, torch.int32, (n,), dev)
     _check("counts", counts, torch.int32, (n,), dev)
+    if records.data_ptr() % 16:
+        raise ValueError("records: the kernels' bulk copies need a 16-byte "
+                         "aligned start")
     return dev, n
+
+
+def _workspace(lib, n_tiles: int, tile_h: int, k_layers: int, dev):
+    """The kernels' scratch: the segment plan of the heavy tiles and the
+    partial results of their segments (k_layers = 0: the depth raster).
+    Dropping it after the launch is safe: the caching allocator hands the
+    memory only to work queued after the kernel on the same stream."""
+    return torch.empty(lib.vkr_raster_workspace(n_tiles, tile_h, k_layers),
+                       dtype=torch.uint8, device=dev)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -195,6 +218,15 @@ def rasterize_depth_grid(records: torch.Tensor, rec_start: torch.Tensor,
         return rasterize_depth_grid_plain(records, rec_start, counts, init_d,
                                           init_i, floor_t, tile_w=tile_w,
                                           tile_h=tile_h)
+    out = _launch_depth(records, rec_start, counts, init_d, init_i, floor_t,
+                        tile_w, tile_h, None)
+    if counts.shape[0]:
+        _DEPTH_WRAPPER.launches += 1
+    return out
+
+
+def _launch_depth(records, rec_start, counts, init_d, init_i, floor_t,
+                  tile_w, tile_h, block_ns):
     dev, n = _check_stream_args(records, rec_start, counts, tile_w, tile_h)
     shape = (n, tile_h, tile_w)
     _check("init_d", init_d, torch.float32, shape, dev)
@@ -205,16 +237,17 @@ def rasterize_depth_grid(records: torch.Tensor, rec_start: torch.Tensor,
     out_i = torch.empty(shape, dtype=torch.int32, device=dev)
     if n == 0:
         return out_d, out_i
+    lib = _lib()
+    ws = _workspace(lib, n, tile_h, 0, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().vkr_raster_depth(
+        err = lib.vkr_raster_depth(
             _ptr(records), _ptr(rec_start), _ptr(counts), _ptr(init_d),
             _ptr(init_i), _ptr(floor_t), _ptr(out_d), _ptr(out_i), n, tile_h,
-            ctypes.c_void_p(stream))
+            _ptr(ws), _ptr(block_ns), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"raster depth kernel launch failed: CUDA error "
                            f"{err}")
-    _DEPTH_WRAPPER.launches += 1
     return out_d, out_i
 
 
@@ -360,6 +393,15 @@ def rasterize_layers_grid(records: torch.Tensor, rec_start: torch.Tensor,
                                            bound_t, floor_t, sentinel,
                                            k_layers, tile_w=tile_w,
                                            tile_h=tile_h)
+    out = _launch_layers(records, rec_start, counts, bound_t, floor_t,
+                         sentinel, k_layers, tile_w, tile_h, None)
+    if counts.shape[0]:
+        _LAYERS_WRAPPER.launches += 1
+    return out
+
+
+def _launch_layers(records, rec_start, counts, bound_t, floor_t, sentinel,
+                   k_layers, tile_w, tile_h, block_ns):
     dev, n = _check_stream_args(records, rec_start, counts, tile_w, tile_h)
     lib = _lib()
     if not 1 <= k_layers <= lib.vkr_max_layers():
@@ -373,16 +415,16 @@ def rasterize_layers_grid(records: torch.Tensor, rec_start: torch.Tensor,
     out_i = torch.empty((k_layers,) + shape, dtype=torch.int32, device=dev)
     if n == 0:
         return out_d, out_i
+    ws = _workspace(lib, n, tile_h, k_layers, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vkr_raster_layers(
             _ptr(records), _ptr(rec_start), _ptr(counts), _ptr(bound_t),
             _ptr(floor_t), _ptr(out_d), _ptr(out_i), n, tile_h, k_layers,
-            sentinel, ctypes.c_void_p(stream))
+            sentinel, _ptr(ws), _ptr(block_ns), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"raster layers kernel launch failed: CUDA error "
                            f"{err}")
-    _LAYERS_WRAPPER.launches += 1
     return out_d, out_i
 
 
@@ -403,17 +445,15 @@ def rasterize_layers_grid_plain(records, rec_start, counts, bound_t,
     p = tile_h * tile_w
     dev = records.device
     rec = records.reshape(-1, F_FIELDS)
-    ds = torch.full((k_layers, g_tiles, p), 2.0, dtype=torch.float32,
-                    device=dev)
-    ids = torch.full((k_layers, g_tiles, p), sentinel, dtype=torch.int32,
+    d_s = torch.full((k_layers, g_tiles, p), 2.0, dtype=torch.float32,
+                     device=dev)
+    i_s = torch.full((k_layers, g_tiles, p), sentinel, dtype=torch.int32,
                      device=dev)
     cnt_s, order = torch.sort(counts.long(), descending=True, stable=True)
     cnt_s = cnt_s.cpu().tolist()
     first_s = rec_start.long()[order] * CHUNK
     bnd = bound_t.reshape(g_tiles, p)[order]
     flo = floor_t.reshape(g_tiles, p)[order] if floor_t is not None else None
-    d_s = ds.clone()
-    i_s = ids.clone()
     px, py, band_lo = _pixel_grid(tile_h, tile_w, dev)
     group = max(1, PLAIN_ELEMS // (p * (k_layers + 8)))
     n_active = len(cnt_s)
@@ -427,22 +467,142 @@ def rasterize_layers_grid_plain(records, rec_start, counts, bound_t,
             cov = cov & hit & (z <= bnd[g0:g1])
             if flo is not None:
                 cov = cov & (z > flo[g0:g1])
-            d = d_s[:, g0:g1]
-            i = i_s[:, g0:g1]
-            le = cov[None] & (z[None] <= d)                    # [K, g, P]
-            rep = le & (torch.cumsum(le.to(torch.int8), 0) == 1)
-            strict = rep & (z[None] < d)
-            pushed = (torch.cumsum(strict.to(torch.int8), 0) - strict.to(
-                torch.int8)) > 0
-            d_up = torch.cat([d[:1], d[:-1]], 0)
-            i_up = torch.cat([i[:1], i[:-1]], 0)
-            zb = z[None].expand_as(d)
-            tb = tri[None].expand_as(i)
-            d_s[:, g0:g1] = torch.where(pushed, d_up,
-                                        torch.where(rep, zb, d))
-            i_s[:, g0:g1] = torch.where(pushed, i_up,
-                                        torch.where(rep, tb, i))
+            d_s[:, g0:g1], i_s[:, g0:g1] = _insert_layer(
+                d_s[:, g0:g1], i_s[:, g0:g1], z, tri, cov)
     inv = torch.empty_like(order)
     inv[order] = torch.arange(g_tiles, device=dev)
     return (d_s[:, inv].reshape(k_layers, g_tiles, tile_h, tile_w),
             i_s[:, inv].reshape(k_layers, g_tiles, tile_h, tile_w))
+
+
+def _insert_layer(d, i, z, tri, cov):
+    """One fragment per pixel into K-layer stacks d/i [K, ...] (z, tri,
+    cov [...]): at the first layer with z <= d[j], a tie replaces the
+    layer and a strictly nearer fragment shifts the deeper layers down.
+    A stack's depths never decrease with j (empty layers are 2.0 and
+    every insert keeps the order), so ``z <= d[j]`` holds from the first
+    such layer on."""
+    le = cov[None] & (z[None] <= d)                            # [K, ...]
+    before = torch.cat([torch.zeros_like(le[:1]), le[:-1]], 0)
+    rep = le & ~before
+    pushed = before & (rep & (z[None] < d)).any(0, keepdim=True)
+    d_up = torch.cat([d[:1], d[:-1]], 0)
+    i_up = torch.cat([i[:1], i[:-1]], 0)
+    return (torch.where(pushed, d_up, torch.where(rep, z[None].expand_as(d),
+                                                  d)),
+            torch.where(pushed, i_up, torch.where(rep,
+                                                  tri[None].expand_as(i), i)))
+
+
+def kernel_block_ns(wrapper, *args, **kw) -> torch.Tensor:
+    """One launch of a raster kernel on CUDA tensors (``wrapper`` is
+    rasterize_depth_grid or rasterize_layers_grid, the arguments are
+    theirs) that also records every block's start and end on the
+    device's ``%globaltimer``.  Returns i64[blocks, 2] in nanoseconds,
+    block b = blockIdx.y * gridDim.x + blockIdx.x.  For measuring the
+    spread of block times; not counted in ``launches`` and on no frame
+    path."""
+    names = {rasterize_depth_grid: ("init_d", "init_i", "floor_t"),
+             rasterize_layers_grid: ("bound_t", "floor_t", "sentinel",
+                                     "k_layers")}[wrapper]
+    records, rec_start, counts = args[:3]
+    rest = dict(zip(names, args[3:]))
+    rest.update(kw)
+    tile_w, tile_h = rest.pop("tile_w", 128), rest.pop("tile_h", 32)
+    n_blocks = _lib().vkr_raster_blocks(counts.shape[0], tile_h,
+                                        rest.get("k_layers", 0))
+    block_ns = torch.zeros((n_blocks, 2), dtype=torch.int64,
+                           device=records.device)
+    if wrapper is rasterize_depth_grid:
+        _launch_depth(records, rec_start, counts, rest["init_d"],
+                      rest["init_i"], rest.get("floor_t"), tile_w, tile_h,
+                      block_ns)
+    else:
+        _launch_layers(records, rec_start, counts, rest["bound_t"],
+                       rest["floor_t"], rest["sentinel"], rest["k_layers"],
+                       tile_w, tile_h, block_ns)
+    return block_ns
+
+
+# ---------------------------------------------------------------------------
+# the kernels' exactness rules in plain PyTorch (csrc/raster.cu follows
+# these; no frame path calls them, tests/test_torch_raster_design.py
+# holds them against the plain versions)
+# ---------------------------------------------------------------------------
+
+# a warp's pixel footprint (width, height) in csrc/raster.cu
+DEPTH_FOOTPRINT = (8, 8)
+LAYERS_FOOTPRINT = (8, 4)
+SEGMENT_EMPTY = -1         # id of a depth segment that no record hit
+
+
+def footprint_may_cover(rec: torch.Tensor, x0: int, y0: int, foot_w: int,
+                        foot_h: int, bound_max=None,
+                        floor_min=None) -> torch.Tensor:
+    """The kernels' footprint test: rec f32[..., 16] against the
+    foot_w x foot_h pixels at tile-local (x0, y0).  False only where no
+    pixel of the footprint can be covered.
+
+    Each rounded step of e = (a*px + b*py) + k is monotone in the one
+    operand that changes, so e is monotone in px for a fixed py and in py
+    for a fixed px: its maximum over the pixel centres is at the corner
+    picked by the signs of a and b, its minimum at the opposite one.  An
+    edge or depth plane whose maximum is < 0 covers no pixel (a NaN corner
+    keeps the record).  The k-buffer also drops a record whose depth
+    minimum exceeds ``bound_max`` (the footprint's largest bound) or whose
+    maximum is at most ``floor_min`` (its smallest floor)."""
+    f = [rec[..., i] for i in range(12)]
+    xlo = torch.tensor(x0 + 0.5, dtype=torch.float32, device=rec.device)
+    xhi = torch.tensor(x0 + foot_w - 0.5, dtype=torch.float32,
+                       device=rec.device)
+    ylo = torch.tensor(y0 + 0.5, dtype=torch.float32, device=rec.device)
+    yhi = torch.tensor(y0 + foot_h - 0.5, dtype=torch.float32,
+                       device=rec.device)
+
+    def corner(a, b, k, high):
+        px = torch.where((a >= 0.0) == high, xhi, xlo)
+        py = torch.where((b >= 0.0) == high, yhi, ylo)
+        return a * px + b * py + k
+
+    e0 = corner(f[0], f[1], f[2], True)
+    e1 = corner(f[3], f[4], f[5], True)
+    e2 = corner(f[6], f[7], f[8], True)
+    zmax = corner(f[9], f[10], f[11], True)
+    zmin = corner(f[9], f[10], f[11], False)
+    may = ~(e0 < 0.0) & ~(e1 < 0.0) & ~(e2 < 0.0) & ~(zmax < 0.0)
+    if bound_max is not None:
+        may = may & ~(zmin > bound_max)
+    if floor_min is not None:
+        may = may & ~(zmax <= floor_min)
+    return may
+
+
+def merge_depth_segments(init_d, init_i, parts):
+    """Merge the depth raster of consecutive stream segments.  Each part
+    is (depth, id) of one segment run from (+inf, SEGMENT_EMPTY); its id
+    stays SEGMENT_EMPTY only where no record of the segment hit the band.
+    The whole stream's result is the lexicographic minimum of
+    (zc, -stream index) over the init value and every band-hitting record,
+    so segments fold in stream order, a later one winning a tie."""
+    d, i = init_d, init_i
+    for pd, pi in parts:
+        take = (pi != SEGMENT_EMPTY) & (pd <= d)
+        d = torch.where(take, pd, d)
+        i = torch.where(take, pi, i)
+    return d, i
+
+
+def merge_layer_segments(parts, sentinel: int):
+    """Merge the k-buffers (depth f32[K, ...], id i32[K, ...]) of
+    consecutive stream segments.  A k-buffer holds the K smallest distinct
+    covered depths, each with the id of the latest fragment at that depth,
+    so the segments' entries are inserted again in stream order with the
+    k-buffer's own rule (a tie replaces, a later segment winning; the K
+    smallest stay).  An empty slot is (2.0, sentinel); a real entry at
+    depth 2.0 is told from it by its id."""
+    d = torch.full_like(parts[0][0], 2.0)
+    i = torch.full_like(parts[0][1], sentinel)
+    for pd, pi in parts:
+        for j in range(pd.shape[0]):
+            d, i = _insert_layer(d, i, pd[j], pi[j], pi[j] != sentinel)
+    return d, i
