@@ -25,23 +25,36 @@ Phases, each printed as one JSON object on its own line:
      least time the card could take for the same work), and for the
      raster kernels the largest record count of one tile and of one
      8-row band and the spread of their blocks' times (%globaltimer),
-  6. parity: 480x272 frames rendered with the kernels against the same
+  6. classifier: the shadow classifier's call of the bench frame
+     (shade.classified_shadow_factor's arguments, recorded in phase 4)
+     run again beside the dense filter on the same inputs: the factors
+     must be equal bit for bit on the active pixels (the classified
+     factor is 0 elsewhere); the lit, blocked, uncertain and inactive
+     pixel counts, the cap and both times,
+  7. exactness: the 1080p bench frame with the default classified shadows
+     against the same frame with the dense filter (shadow_classify_cap
+     = 0), frames alternated dense, classified, classified, dense: equal
+     u8 images (PSNR inf), equal stats but fallback_px, overflow counters
+     0, and both frame times,
+  8. passes: graph/profiler.profile_passes on the bench frame, classified
+     and dense, each printed as one line of stage -> ms,
+  9. parity: 480x272 frames rendered with the kernels against the same
      frames rendered with all four plain versions (PSNR >= 40 dB): the
      bench frame, and a transparent + flat-shaded sponza_like frame,
-  7. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
+ 10. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
      at 256x128 on the GPU against the port's CPU path, which the CPU
      tests hold against the JAX package's goldens (PSNR >= 40 dB, equal
      stats),
-  8. transparent: sponza_like at 1920x1080, CSM mode 3, background and
+ 11. transparent: sponza_like at 1920x1080, CSM mode 3, background and
      tonemap, from a camera facing a transparent pane — transparent layer
      0 must cover pixels, every overflow counter must be 0; then the
      k-buffer kernel against its plain version on that pass's K=3 call,
-  9. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
+ 12. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
      the flat-shaded cube; each must return 0 with overflow counters 0.
-Phases 4, 8 and 9 each set every kernel's launch count to 0 just before
-they run and read the counts just after; a kernel of that path that never
-launched fails the run.  Then one {"kernels": [...]} line, the card line
-as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
+Phases 4, 7, 8, 11 and 12 each set every kernel's launch count to 0 just
+before they run and read the counts just after; a kernel of that path
+that never launched fails the run.  Then one {"kernels": [...]} line, the
+card line as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no CUDA device or the package
 is missing, and non-zero after any failed phase.
 """
@@ -49,6 +62,7 @@ is missing, and non-zero after any failed phase.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -63,6 +77,8 @@ from concurrent.futures import ThreadPoolExecutor
 WIDTH, HEIGHT, SHADOW_SIZE = 1920, 1080, 2048
 PARITY_W, PARITY_H, PARITY_SHADOW = 480, 272, 1024
 TIMED_FRAMES = 5
+EXACT_FRAMES = 2          # per shadow path, in each half of the alternation
+PROFILE_ITERS = 5
 TRANSPARENT_FRAMES = 3
 KERNEL_REPS = 10
 POST_ULP = 2
@@ -330,6 +346,51 @@ def compare_post(name, shape_tag, kernel_fn, plain_fn, args, n_bytes,
     return out
 
 
+def check_classifier(args, kw) -> dict:
+    """One classified_shadow_factor call (its recorded arguments) against
+    the dense filter on the same inputs: bit-exact on the active pixels
+    (covered and sun-facing; the classified factor is 0 elsewhere), the
+    classifier's pixel counts, the cap and both times."""
+    import torch
+    from vk_renderer_tpu_torch.ops import shade
+    maps, coarse, gbuf, sd, mode, enable, ndl, cap = args
+    fine = kw.get("shadow_fine")
+    got, ovf = shade.classified_shadow_factor(*args, **kw)
+
+    def dense():
+        return shade.compute_shadow_factor(maps, gbuf["wx"], gbuf["wy"],
+                                           gbuf["wz"], gbuf["view_z"], sd,
+                                           mode, enable)
+
+    want = dense()
+    active = gbuf["covered"] & (ndl > 0.0)
+    same = torch.equal(got.view(torch.int32),
+                       torch.where(active, want, 0.0).view(torch.int32))
+    su, sv, sz, layer = shade.shadow_coords(gbuf["wx"], gbuf["wy"],
+                                            gbuf["wz"], gbuf["view_z"], sd,
+                                            mode)
+    lit, blk = shade._classify_shadow(
+        coarse, su, sv, sz, layer, maps.shape[-1], mode,
+        shadow_rows=maps if kw.get("quad_lit", True) else None,
+        shadow_fine=fine)
+    n_active = int(active.sum())
+    n_lit, n_blk = int((active & lit).sum()), int((active & blk).sum())
+    return {"phase": "classifier", "shadow_mode": mode,
+            "pixels": ndl.numel(), "inactive_px": ndl.numel() - n_active,
+            "lit_px": n_lit, "blocked_px": n_blk,
+            "uncertain_px": n_active - n_lit - n_blk,
+            "uncertain_share": (n_active - n_lit - n_blk) / ndl.numel(),
+            "cap": cap, "overflow": int(ovf),
+            "coarse_cells": list(coarse.shape),
+            "fine_cells": list(fine.shape) if fine is not None else None,
+            "bit_exact": same,
+            "max_abs_err": float(torch.where(active, (got - want).abs(),
+                                             0.0).max()),
+            "classified_ms": cuda_ms(
+                lambda: shade.classified_shadow_factor(*args, **kw), 5),
+            "dense_ms": cuda_ms(dense, 5)}
+
+
 def main() -> int:
     try:
         import torch
@@ -341,9 +402,9 @@ def main() -> int:
     try:
         import numpy as np
         from vk_renderer_tpu_torch.app import headless
-        from vk_renderer_tpu_torch.graph import driver, frame
+        from vk_renderer_tpu_torch.graph import driver, frame, profiler
         from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
-        from vk_renderer_tpu_torch.ops import post
+        from vk_renderer_tpu_torch.ops import post, shade
         from vk_renderer_tpu_torch.ops import raster_kernels as rk
         from vk_renderer_tpu_torch.ops.common import cdiv, from_tiles
         from vk_renderer_tpu_torch.scene import ktx, procedural
@@ -437,7 +498,8 @@ def main() -> int:
     reset_counts()
     with Recorder(rk, "rasterize_depth_grid") as rec_d, \
             Recorder(rk, "rasterize_layers_grid") as rec_k, \
-            Recorder(frame.POSTPROCESS_REGISTRY, "tonemap") as rec_t:
+            Recorder(frame.POSTPROCESS_REGISTRY, "tonemap") as rec_t, \
+            Recorder(shade, "classified_shadow_factor") as rec_c:
         t0 = time.perf_counter()
         out = driver.render(scene, cam, settings, cfg)
         torch.cuda.synchronize()
@@ -537,7 +599,87 @@ def main() -> int:
                             f"plain version")
     del rec_d, rec_k, rec_t, cam_calls, sh_calls
 
-    # ---- the procedural scene of phases 6 and 8, built after the bench
+    # ---- 6. the classifier's bench-frame call against the dense filter
+    try:
+        if len(rec_c.calls) != 1:
+            raise RuntimeError(f"{len(rec_c.calls)} classifier calls in the "
+                               "bench frame, not 1")
+        c_out = check_classifier(*rec_c.calls[0])
+        emit(c_out)
+        if not c_out["bit_exact"]:
+            failures.append("classified shadow factor differs from the "
+                            "dense filter")
+    except Exception:
+        traceback.print_exc()
+        failures.append("classifier phase raised")
+    del rec_c
+
+    # ---- 7. the 1080p frame: classified against dense shadows,
+    # alternated dense, classified, classified, dense
+    dense_cfg = dataclasses.replace(cfg, shadow_classify_cap=0)
+    try:
+        driver.render(scene, cam, settings, dense_cfg)      # warm-up
+        reset_counts()
+        runs = {"dense": [], "classified": []}
+        outs = {}
+        for tag in ("dense", "classified", "classified", "dense"):
+            c = cfg if tag == "classified" else dense_cfg
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXACT_FRAMES):
+                outs[tag] = driver.render(scene, cam, settings, c)
+            torch.cuda.synchronize()
+            runs[tag].append(1000.0 * (time.perf_counter() - t0)
+                             / EXACT_FRAMES)
+        e_launches = read_counts()
+        cs, ds = (frame.stats_from_vec(outs[t]["stats_vec"])
+                  for t in ("classified", "dense"))
+        cu8, du8 = (outs[t]["color_u8"].cpu().numpy()
+                    for t in ("classified", "dense"))
+        same = bool(np.array_equal(cu8, du8))
+        p = psnr(cu8.astype(np.float32) / 255.0,
+                 du8.astype(np.float32) / 255.0)
+        stats_equal = all(cs[k] == ds[k] for k in frame.STATS_KEYS
+                          if k != "fallback_px")
+        emit({"phase": "exactness", "width": WIDTH, "height": HEIGHT,
+              "frames_per_run": EXACT_FRAMES,
+              "frame_ms_classified": runs["classified"],
+              "frame_ms_dense": runs["dense"], "u8_equal": same,
+              "psnr_db": p, "stats_classified": cs, "stats_dense": ds,
+              "stats_equal_but_fallback": stats_equal,
+              "fallback_px": cs["fallback_px"], "launches": e_launches})
+        del outs
+        gate_stats("classified frame", cs)
+        gate_stats("dense frame", ds)
+        if not (same and stats_equal):
+            failures.append(f"classified frame differs from dense: PSNR "
+                            f"{p} dB, stats {cs} vs {ds}")
+        gate_launches("exactness frames", e_launches, KERNELS)
+    except Exception:
+        traceback.print_exc()
+        failures.append("exactness phase raised")
+
+    # ---- 8. per-pass times of the bench frame (committed profiler)
+    for tag, pcfg in (("classified", cfg), ("dense", dense_cfg)):
+        try:
+            reset_counts()
+            sd, st = driver.frame_inputs(scene, cam, settings, pcfg)
+            timings = profiler.profile_passes(scene, sd, st, pcfg,
+                                              iters=PROFILE_ITERS)
+            p_launches = read_counts()
+            emit({"phase": "passes", "shadows": tag, "iters": PROFILE_ITERS,
+                  "ms": timings, "launches": p_launches})
+            print(profiler.format_table(timings), file=sys.stderr,
+                  flush=True)
+            if not all(math.isfinite(v) and v > 0 for v in timings.values()):
+                failures.append(f"passes {tag}: a stage time is not "
+                                f"positive")
+            gate_launches(f"passes {tag}", p_launches, KERNELS)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"passes phase {tag} raised")
+
+    # ---- the procedural scene of phases 9 and 11, built after the bench
     # frame so that phase 4 runs as it did before this scene existed
     t0 = time.perf_counter()
     like_host = procedural.build_sponza_like().build()
@@ -549,7 +691,7 @@ def main() -> int:
           "transparent": like_host.n_transparent,
           "seconds": time.perf_counter() - t0})
 
-    # ---- 6. frame parity: kernels vs plain versions at 480x272
+    # ---- 9. frame parity: kernels vs plain versions at 480x272
     # faces the pane at x = 3 from its front (+z) side, far enough that
     # the pane's triangles stay under the binner's big-triangle capacity
     # (from (3, 2.5, 3.5) they overflow it at 1080p)
@@ -598,7 +740,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"parity phase {tag} raised")
 
-    # ---- 7. small-input reference: GPU frame vs the port's CPU path
+    # ---- 10. small-input reference: GPU frame vs the port's CPU path
     try:
         fb = SceneBuilder()
         fb.load_gltf(FIXTURE, "fixture")
@@ -627,7 +769,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("reference phase raised")
 
-    # ---- 8. the transparent pass at full width
+    # ---- 11. the transparent pass at full width
     try:
         tcfg = driver.config_from_settings(t_settings, WIDTH, HEIGHT,
                                            shadow_size=SHADOW_SIZE)
@@ -684,7 +826,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("transparent phase raised")
 
-    # ---- 9. the headless CLI, in-process
+    # ---- 12. the headless CLI, in-process
     del like
     runs = [("sponza_like", ["--scene", "sponza_like", "--frames", "3",
                              "--width", str(WIDTH), "--height", str(HEIGHT),

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the raster kernels bit for bit (depths and ids), the post kernels
 within 2 ulp (the tonemap's logf / expf are CUDA's; the gradient is
-bit-exact).
+bit-exact).  Also the shadow classifier (PyTorch ops, no kernel of its
+own) on the card: its masks equal the CPU's and its factor the dense
+filter's, bit for bit.
 
 The plain versions are held against the JAX package's Pallas kernels on
 the CPU (tests/test_torch_raster.py); this file closes the chain on the
@@ -16,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from vk_renderer_tpu_torch.ops import binning, post, raster
+from vk_renderer_tpu_torch.ops import binning, post, raster, shade
+from vk_renderer_tpu_torch.ops import texture as tex
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.ops import setup
 from vk_renderer_tpu_torch.ops.common import max_ulp
@@ -255,3 +258,63 @@ def test_post_wrappers_reject_bad_arguments(dev):
         post.tonemap(torch.ones((3, 4, 4), device=dev).transpose(1, 2))
     with pytest.raises(ValueError, match="on cpu"):
         post.gradient(4, 4, torch.ones(4, device=dev), torch.ones(4))
+
+
+def _classifier_case(seed, h=64, w=96, size=256):
+    """Flat 0.25 / 0.9 half-plane maps with a noisy band (lit, blocked and
+    uncertain pixels all exist; tests/test_torch_classifier.py), identity
+    light matrices, one pixel in ten uncovered or facing away: (packed
+    maps, scene data, G-buffer, n_dot_l) on the CPU."""
+    rng = np.random.default_rng(seed)
+    smap = np.full((4, size, size), 0.9, np.float32)
+    smap[:, :, : size // 2] = 0.25
+    smap[:, :, size // 2 - 8: size // 2 + 8] = rng.uniform(
+        0.1, 0.95, size=(4, size, 16))
+    sd = {"cascade_distances": torch.tensor([2.0, 8.0, 22.0, 100.0]),
+          "light_viewproj": torch.eye(4).repeat(4, 1, 1)}
+    g = {k: torch.from_numpy(rng.uniform(lo, hi, (h, w)).astype(np.float32))
+         for k, lo, hi in (("wx", -1.3, 1.3), ("wy", -1.3, 1.3),
+                           ("wz", 0.15, 0.97), ("view_z", 0.5, 80))}
+    g["covered"] = torch.from_numpy(rng.random((h, w)) < 0.9)
+    ndl = torch.from_numpy((rng.random((h, w)) < 0.9).astype(np.float32))
+    return tex.pack_shadow_maps(torch.from_numpy(smap)), sd, g, ndl
+
+
+def _on(dev, tree):
+    if isinstance(tree, dict):
+        return {k: v.to(dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_classified_shadow_on_the_card(dev, mode):
+    """Modes 0-3, all three classifier stages: the card's lit / blocked
+    masks equal the CPU's, and its classified factor equals its dense
+    factor on active pixels (0 elsewhere), bit for bit."""
+    packed, sd, g, ndl = _classifier_case(40 + mode)
+    tables = (tex.build_shadow_coarse(packed, block=16),
+              tex.build_shadow_coarse(packed, block=4))
+    masks = {}
+    for where in ("cpu", dev):
+        p, s, gb = _on(where, packed), _on(where, sd), _on(where, g)
+        su, sv, sz, layer = shade.shadow_coords(gb["wx"], gb["wy"], gb["wz"],
+                                                gb["view_z"], s, mode)
+        masks[str(where)] = [m.cpu() for m in shade._classify_shadow(
+            _on(where, tables[0]), su, sv, sz, layer, 256, mode,
+            shadow_rows=p, shadow_fine=_on(where, tables[1]))]
+    cpu, card = masks["cpu"], masks[str(dev)]
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    assert bool(cpu[0].any()) and bool(cpu[1].any())
+    p, s, gb, n = _on(dev, packed), _on(dev, sd), _on(dev, g), _on(dev, ndl)
+    got, ovf = shade.classified_shadow_factor(
+        p, _on(dev, tables[0]), gb, s, mode, True, n, n.numel(),
+        shadow_fine=_on(dev, tables[1]))
+    dense = shade.compute_shadow_factor(p, gb["wx"], gb["wy"], gb["wz"],
+                                        gb["view_z"], s, mode, True)
+    torch.cuda.synchronize()
+    assert int(ovf) == 0
+    active = gb["covered"] & (n > 0)
+    assert torch.equal(got.view(torch.int32),
+                       torch.where(active, dense, 0.0).view(torch.int32))
+

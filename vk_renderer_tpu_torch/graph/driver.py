@@ -35,14 +35,22 @@ def settings_to_torch(settings: RenderSettings, device) -> dict:
     }, device)
 
 
+def frame_inputs(scene, camera: Camera, settings: RenderSettings,
+                 cfg: FrameConfig):
+    """render_frame's (scene_data, settings) tensors on the scene's
+    device for this camera and these settings."""
+    device = scene.positions[0].device
+    sd = build_scene_data(camera, settings, cfg.width / cfg.height)
+    return (scene_data_to_torch(sd, device),
+            settings_to_torch(settings, device))
+
+
 def render(scene, camera: Camera, settings: RenderSettings,
            cfg: FrameConfig):
     """One frame end-to-end on the scene's device; returns the
     render_frame output dict."""
-    device = scene.positions[0].device
-    sd = build_scene_data(camera, settings, cfg.width / cfg.height)
-    return render_frame(scene, scene_data_to_torch(sd, device),
-                        settings_to_torch(settings, device), cfg)
+    return render_frame(scene, *frame_inputs(scene, camera, settings, cfg),
+                        cfg)
 
 
 def config_from_settings(settings: RenderSettings, width: int, height: int,

@@ -43,17 +43,27 @@ def skybox_colors(cubemap: torch.Tensor, view: torch.Tensor,
 
 
 def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
-                     view: torch.Tensor, proj: torch.Tensor):
+                     view: torch.Tensor, proj: torch.Tensor,
+                     sparse_cap: int | None = None):
     """Overwrite pixels still at clear depth (>= 1.0) with the skybox
     (depth LESS_OR_EQUAL at z=1, write off).  color: (r, g, b) planar.
-    Dense: every pixel's direction is computed, only the sky pixels are
-    sampled and written (the JAX package's tier ladder of compacted
-    lists, skybox.py:96-114, is its TPU form of the same selection)."""
+    Returns (color, overflow).
+
+    Only the sky pixels are sampled and written, whatever the cap (the
+    JAX package's tier ladder of compacted lists, skybox.py:96-114, is
+    its TPU form of the same selection, with a dense fallback beyond the
+    cap).  ``overflow`` counts the sky pixels beyond ``sparse_cap`` as
+    the JAX function does — a cap-sizing signal (the frame's
+    ``fallback_px``); the image never depends on it."""
     h, w = depth.shape
     mask = depth >= 1.0
     sel = torch.nonzero(mask.reshape(-1)).squeeze(1)
-    if sel.numel() == 0:
-        return tuple(color)
+    n_sky = sel.numel()
+    overflow = torch.tensor(
+        0 if sparse_cap is None else max(n_sky - sparse_cap, 0),
+        dtype=torch.int32, device=depth.device)
+    if n_sky == 0:
+        return tuple(color), overflow
     px = (sel % w).to(torch.float32) + 0.5
     py = (sel // w).to(torch.float32) + 0.5
     sky = skybox_colors_at(cubemap, view, proj, px, py, w, h)
@@ -62,4 +72,4 @@ def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
         c = c.reshape(-1).clone()
         c[sel] = s
         out.append(c.reshape(h, w))
-    return tuple(out)
+    return tuple(out), overflow

@@ -13,9 +13,10 @@ LOD follows the Vulkan spec's isotropic approximation
 trilinear blend between the two bracketing mips.
 
 The heap is one i32 word per texel (the JAX package's quad interleave,
-ShadowRows and quad-row cubemap are TPU gather-cost layouts of the same
-words: every bilinear here gathers its four corners directly, with the
-same REPEAT / clamp arithmetic, so the sampled values are identical).
+ShadowRows, CoarseRows and quad-row cubemap are TPU gather-cost layouts
+of the same words: every bilinear here gathers its four corners, and the
+shadow classifier its 2x2 cells, directly, with the same REPEAT / clamp
+arithmetic, so the values read are identical).
 Scenes whose glTF samplers differ from the default take the per-sampler
 path (``_sample_general``: NEAREST / LINEAR filters and mip modes, REPEAT /
 CLAMP_TO_EDGE / MIRRORED_REPEAT wrap).
@@ -211,16 +212,29 @@ def _sample_general(textures, tex_id, u, v, dudx, dvdx, dudy, dvdy,
 
 
 def sample_trilinear(textures, tex_id, u, v, dudx, dvdx, dudy, dvdy,
-                     channels=(0, 1, 2, 3)):
+                     channels=(0, 1, 2, 3), nearest_mip: bool = False):
     """Full trilinear sample.  All per-pixel args planar (any matching
     shape).  Returns a tuple of planes for the requested channels.
+
+    ``nearest_mip=True`` is the gated fidelity knob (texture.py:255-258):
+    one bilinear sample at the rounded mip level instead of two blended
+    levels.  Off by default (exact trilinear).
+
     Scenes carrying a non-default glTF sampler (has_custom_samplers)
-    route through the per-sampler path, _sample_general."""
+    route through the per-sampler path, _sample_general, which does not
+    take the knob."""
     if textures.has_custom_samplers:
+        assert not nearest_mip, \
+            "mr_nearest_mip knob is not supported with custom samplers"
         return _sample_general(textures, tex_id, u, v, dudx, dvdx, dudy,
                                dvdy, channels)
     w0, h0, max_level, srgb, w0b, h0b, base = _meta_take(textures, tex_id)
     lam = _lod_from_meta(w0, h0, max_level, dudx, dvdx, dudy, dvdy)
+    if nearest_mip:
+        off, wi, hi = _desc_from_meta(base, w0b, h0b,
+                                      torch.round(lam).to(torch.int32))
+        return _bilinear_at(textures.texels, off, wi, hi, u, v, srgb,
+                            channels)
     l0 = torch.floor(lam).to(torch.int32)
     l1 = torch.minimum(l0 + 1, max_level.to(torch.int32))
     frac = lam - l0.to(torch.float32)
@@ -267,12 +281,45 @@ def _index(x, size):
     return torch.nan_to_num(torch.clamp(x, 0, size - 1), nan=0.0).long()
 
 
-def sample_shadow_batch(shadow_packed: torch.Tensor, us: torch.Tensor,
-                        vs: torch.Tensor, layer: torch.Tensor):
-    """Batched bilinear shadow taps over pair-packed i32[L, S, S] maps:
-    us/vs [K, ...] (K independent filter taps), layer [...].  Border depth
-    1.0 outside [0,1]^2 (opaque-white border).  Two flat gathers per tap
-    (the x-pair rides one packed word)."""
+SHADOW_COARSE_BLOCK = 64   # texels per coarse min/max cell at 2048
+
+
+def coarse_block_for(size: int) -> int:
+    """Coarse classifier cell size for a shadow map (texture.py:484-493):
+    ~32 cells per side, clamped to [16, 64] so the widest PCSS search
+    window stays within two consecutive cells."""
+    return max(16, min(SHADOW_COARSE_BLOCK, size // 32))
+
+
+def fine_block_for(size: int) -> int:
+    """Cell size of the classifier's fine level (texture.py:496-505): its
+    window covers only the filter's tap footprint, so cells 4x smaller
+    than the coarse level still fit it in 2x2 cells."""
+    return max(4, coarse_block_for(size) // 4)
+
+
+def build_shadow_coarse(packed: torch.Tensor,
+                        block: int | None = None) -> torch.Tensor:
+    """Pair-packed maps i32[L, S, S] -> i32[L, S/B, S/B] classifier cells,
+    each ``min_q | max_q << 16`` over its B x B block of quantized depths
+    (the low halfword is the texel's own value; texture.py:508-532)."""
+    lo = packed & 0xFFFF
+    n_layers, s, _ = packed.shape
+    block = coarse_block_for(s) if block is None else block
+    block = min(block, s)            # tiny maps: one cell per map
+    assert s % block == 0, "shadow size must be a multiple of the block"
+    sb = s // block
+    r = lo.reshape(n_layers, sb, block, sb, block)
+    return r.amin(dim=(2, 4)) | (r.amax(dim=(2, 4)) << 16)
+
+
+def _shadow_corners(shadow_packed: torch.Tensor, us: torch.Tensor,
+                    vs: torch.Tensor, layer: torch.Tensor):
+    """Border-substituted bilinear corner depths (t00, t10, t01, t11) and
+    the lerp fractions (fx, fy) of taps us/vs [K, ...] over pair-packed
+    i32[L, S, S] maps, layer [...].  Border depth 1.0 outside [0,1]^2
+    (opaque-white border).  Two flat gathers per tap (the x-pair rides one
+    packed word)."""
     size = shadow_packed.shape[-1]
     x = us * float(size) - 0.5
     y = vs * float(size) - 0.5
@@ -306,9 +353,28 @@ def sample_shadow_batch(shadow_packed: torch.Tensor, us: torch.Tensor,
     t10 = torch.where(x1in & y0in, torch.where(use_hi, hi0, lo0), one)
     t01 = torch.where(x0in & y1in, lo1, one)
     t11 = torch.where(x1in & y1in, torch.where(use_hi, hi1, lo1), one)
+    return t00, t10, t01, t11, fx, fy
+
+
+def sample_shadow_batch(shadow_packed: torch.Tensor, us: torch.Tensor,
+                        vs: torch.Tensor, layer: torch.Tensor):
+    """Batched bilinear shadow taps over pair-packed i32[L, S, S] maps:
+    us/vs [K, ...] (K independent filter taps), layer [...]."""
+    t00, t10, t01, t11, fx, fy = _shadow_corners(shadow_packed, us, vs,
+                                                 layer)
     top = t00 + (t10 - t00) * fx
     bot = t01 + (t11 - t01) * fx
     return top + (bot - top) * fy
+
+
+def shadow_tap_corners(shadow_packed: torch.Tensor, u: torch.Tensor,
+                       v: torch.Tensor, layer: torch.Tensor):
+    """The four corner depths (t00, t10, t01, t11) of one bilinear tap at
+    (u, v): the texel values sample_shadow interpolates, without the lerp
+    (texture.py:645-659).  The classifier's receiver-quad proof reads
+    them."""
+    c = _shadow_corners(shadow_packed, u[None], v[None], layer)
+    return tuple(x[0] for x in c[:4])
 
 
 def sample_shadow(shadow_packed: torch.Tensor, u: torch.Tensor,
