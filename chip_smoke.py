@@ -7,9 +7,11 @@ Phases, each printed as one JSON object on its own line:
   1. card: the GPU's name and power limit (nvidia-smi),
   2. build: compile csrc/raster.cu and csrc/post.cu for sm_90a from this
      checkout, one nvcc per source, both started together,
-  3. scene: load the committed Sponza replica (assets/sponza_replica);
-     the procedural 260k-triangle sponza_like scene is built after phase 5
-     (its own scene line),
+  3. scene: load the committed Sponza replica (assets/sponza_replica)
+     with the NumPy texture heap (the frame's), and again through the
+     native bridge (native/texops.cpp) where g++ builds it: both load
+     times and how many heap texels differ; the procedural 260k-triangle
+     sponza_like scene is built after phase 9 (its own scene line),
   4. frame: the bench frame — driver.render at 1920x1080, CSM mode 3,
      skybox, tonemap, at the bench camera — one warm-up frame, then the
      mean of the timed frames, with every kernel's launch count over that
@@ -21,7 +23,9 @@ Phases, each printed as one JSON object on its own line:
      for the gradient) and both raster kernels on a heavy synthetic
      stream (one 128x32 tile of 3,100 records, tests/raster_streams.py)
      against its plain PyTorch version — the raster kernels bit for bit,
-     the post kernels within 2 ulp — with both times, the bound (the
+     the post kernels within 2 ulp (and the gradient's strip form, rows
+     270-539 of the 1080-row background, equal to those rows of the whole
+     one) — with both times, the bound (the
      least time the card could take for the same work), and for the
      raster kernels the largest record count of one tile and of one
      8-row band and the spread of their blocks' times (%globaltimer),
@@ -30,30 +34,53 @@ Phases, each printed as one JSON object on its own line:
      run again beside the dense filter on the same inputs: the factors
      must be equal bit for bit on the active pixels (the classified
      factor is 0 elsewhere); the lit, blocked, uncertain and inactive
-     pixel counts, the cap and both times,
+     pixel counts under the frame's windows (the JAX frame's traced-mode
+     windows) and under the static-mode ones, the cap and both times,
   7. exactness: the 1080p bench frame with the default classified shadows
      against the same frame with the dense filter (shadow_classify_cap
      = 0), frames alternated dense, classified, classified, dense: equal
      u8 images (PSNR inf), equal stats but fallback_px, overflow counters
-     0, and both frame times,
+     0, and both frame times; then one frame with the static-mode
+     classifier windows: the same u8 image,
   8. passes: graph/profiler.profile_passes on the bench frame, classified
      and dense, each printed as one line of stage -> ms,
-  9. parity: 480x272 frames rendered with the kernels against the same
+  9. sharded: the bench frame as n = 2 and n = 4 horizontal strips in
+     turn on the card (parallel/sharded.render_frame_sharded, no group),
+     each held against phase 4's frame: colour mismatch fraction (> 1e-3)
+     under 0.5%, depth within 2e-3 on every pixel whose visible triangle
+     is the same in both frames, at most 0.05% of the pixels with another
+     visible triangle, each of them explained from the scene (an edge
+     through the pixel centre, the alpha test passing in one frame only,
+     two surfaces closer in depth than the frames' rounding there, or two
+     alpha-tested fragments whose depths tie in one frame's k-buffer
+     only: flip_kinds), overflow counters 0, triangles in
+     [ref, n * ref], uncovered pixels bit-equal; whole-frame and
+     per-strip times and the four kernels' launches; every kernel launch
+     of one run of the strips (the 270- and 540-row camera strips with
+     their padded last tile row, the 512- and 1024-row cascade strips,
+     the masked rounds, tonemap and gradient per strip) run again beside
+     its plain version: raster kernels bit for bit, post kernels within
+     2 ulp; then a world of two processes on the one card (gloo, a
+     FileStore in a temporary directory) through
+     render_frame_sharded(group=...), whose assembled frame, gathered on
+     the card, must equal the n = 2 frame bit for bit,
+ 10. parity: 480x272 frames rendered with the kernels against the same
      frames rendered with all four plain versions (PSNR >= 40 dB): the
      bench frame, and a transparent + flat-shaded sponza_like frame,
- 10. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
+ 11. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
      at 256x128 on the GPU against the port's CPU path, which the CPU
      tests hold against the JAX package's goldens (PSNR >= 40 dB, equal
      stats),
- 11. transparent: sponza_like at 1920x1080, CSM mode 3, background and
+ 12. transparent: sponza_like at 1920x1080, CSM mode 3, background and
      tonemap, from a camera facing a transparent pane — transparent layer
      0 must cover pixels, every overflow counter must be 0; then the
      k-buffer kernel against its plain version on that pass's K=3 call,
- 12. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
+ 13. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
      the flat-shaded cube; each must return 0 with overflow counters 0.
-Phases 4, 7, 8, 11 and 12 each set every kernel's launch count to 0 just
-before they run and read the counts just after; a kernel of that path
-that never launched fails the run.  Then one {"kernels": [...]} line, the
+Phases 4, 7, 8, 9 (each n), 12 and 13 each set every kernel's launch
+count to 0 just before they run and read the counts just after; a kernel
+of that path that never launched fails the run.  The kernels line's
+launches are phase 4's plus phase 9's.  Then one {"kernels": [...]} line, the
 card line as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no CUDA device or the package
 is missing, and non-zero after any failed phase.
@@ -80,6 +107,10 @@ TIMED_FRAMES = 5
 EXACT_FRAMES = 2          # per shadow path, in each half of the alternation
 PROFILE_ITERS = 5
 TRANSPARENT_FRAMES = 3
+STRIPS = (2, 4)
+SHARDED_FRAMES = 3
+WORLD_FRAMES = 3
+STRIP_ROW0 = 270          # the gradient's strip check: rows 270-539
 KERNEL_REPS = 10
 POST_ULP = 2
 HEAVY_RECORDS = 3100
@@ -369,17 +400,23 @@ def check_classifier(args, kw) -> dict:
     su, sv, sz, layer = shade.shadow_coords(gbuf["wx"], gbuf["wy"],
                                             gbuf["wz"], gbuf["view_z"], sd,
                                             mode)
-    lit, blk = shade._classify_shadow(
-        coarse, su, sv, sz, layer, maps.shape[-1], mode,
-        shadow_rows=maps if kw.get("quad_lit", True) else None,
-        shadow_fine=fine)
     n_active = int(active.sum())
-    n_lit, n_blk = int((active & lit).sum()), int((active & blk).sum())
+
+    def counts(traced):
+        lit, blk = shade._classify_shadow(
+            coarse, su, sv, sz, layer, maps.shape[-1], mode,
+            shadow_rows=maps if kw.get("quad_lit", True) else None,
+            shadow_fine=fine, traced_windows=traced)
+        n_lit, n_blk = int((active & lit).sum()), int((active & blk).sum())
+        return {"lit_px": n_lit, "blocked_px": n_blk,
+                "uncertain_px": n_active - n_lit - n_blk,
+                "uncertain_share": (n_active - n_lit - n_blk) / ndl.numel()}
+
+    traced = kw.get("traced_windows", False)
     return {"phase": "classifier", "shadow_mode": mode,
             "pixels": ndl.numel(), "inactive_px": ndl.numel() - n_active,
-            "lit_px": n_lit, "blocked_px": n_blk,
-            "uncertain_px": n_active - n_lit - n_blk,
-            "uncertain_share": (n_active - n_lit - n_blk) / ndl.numel(),
+            "traced_windows": traced, **counts(traced),
+            "other_windows": counts(not traced),
             "cap": cap, "overflow": int(ovf),
             "coarse_cells": list(coarse.shape),
             "fine_cells": list(fine.shape) if fine is not None else None,
@@ -389,6 +426,368 @@ def check_classifier(args, kw) -> dict:
             "classified_ms": cuda_ms(
                 lambda: shade.classified_shadow_factor(*args, **kw), 5),
             "dense_ms": cuda_ms(dense, 5)}
+
+
+def strip_check(ref: dict, out: dict, n: int, ref_tid, tid) -> dict:
+    """An n-strip frame against the single frame (tests/test_parallel.py's
+    bounds): colour mismatch fraction (|difference| > 1e-3); the pixels
+    whose visible triangle (``ref_tid`` / ``tid``, the dense G-buffers')
+    differs, and the largest depth difference on every other pixel; the
+    pixels whose depth differs by more than 2e-3; the summed triangles
+    against [ref, n * ref]; and whether the pixels uncovered in both
+    frames are equal bit for bit."""
+    import torch
+    c_ref, c_out = ref["color"], out["color"]
+    mismatch = float(((c_ref - c_out).abs() > 1e-3).float().mean())
+    cov_ref, cov_out = ref["depth"] < 1.0, out["depth"] < 1.0
+    d = (ref["depth"] - out["depth"]).abs()
+    same = ref_tid == tid
+    bg = ~cov_ref & ~cov_out
+    t_ref = ref["stats"]["triangles"]
+    t_out = int(out["stats"]["triangles"])
+    return {"mismatch_fraction": mismatch,
+            "coverage_flips": int((cov_ref != cov_out).sum()),
+            "id_diff_px": int((~same).sum()),
+            "same_id_max_depth_diff": float(torch.where(same, d, 0.0).max()),
+            "depth_off_px": int((d > 2e-3).sum()),
+            "max_depth_diff": float(d.max()),
+            "triangles": t_out, "triangles_ref": t_ref,
+            "triangles_in_range": t_ref <= t_out <= n * t_ref,
+            "background_px": int(bg.sum()),
+            "background_bit_equal": bool(torch.equal(
+                c_ref[:, bg].view(torch.int32),
+                c_out[:, bg].view(torch.int32)))}
+
+
+def layers_at(outs, pix, tile_h: int, tile_w: int, cols: int,
+              sentinel: int) -> list:
+    """The masked k-buffer layers of one view at the pixels ``pix``
+    ([(y, x)] in the view): per pixel, [(triangle, f32 depth)] over every
+    round's output ``outs`` ([(depth, ids)], [K, tiles, tile_h, tile_w])."""
+    import torch
+    if not pix:
+        return []
+    ys = torch.tensor([p[0] for p in pix])
+    xs = torch.tensor([p[1] for p in pix])
+    tile = (ys // tile_h) * cols + xs // tile_w
+    got = [[] for _ in pix]
+    for d, i in outs:
+        dev = d.device
+        dd = d[:, tile.to(dev), (ys % tile_h).to(dev),
+               (xs % tile_w).to(dev)].cpu()
+        ii = i[:, tile.to(dev), (ys % tile_h).to(dev),
+               (xs % tile_w).to(dev)].cpu()
+        for k in range(dd.shape[0]):
+            for j in range(len(pix)):
+                t = int(ii[k, j])
+                if 0 <= t < sentinel:
+                    got[j].append((t, float(dd[k, j])))
+    return got
+
+
+def flip_kinds(host, scene, viewproj, ref_g, strip_g, masked: range,
+               ref_depth, strip_depth, ref_layers, strip_layers,
+               tile_h: int, tile_w: int, cap: int = 4096) -> dict:
+    """Why each pixel's visible triangle differs between the single frame
+    and the strips.  ``ref_g`` and ``strip_g`` (one per strip, in order)
+    are (tid, rows, vattr) of each view's dense G-buffer build.  Kinds,
+    first match wins:
+    - knife_edge: an edge of either triangle passes within 1e-3 pixels
+      of the pixel centre (scene vertices in f64), where the top-left
+      rule is decided by the rounding of each view's planes;
+    - alpha_threshold: an alpha-tested triangle of the two passes the
+      alpha test (>= 0.5, the port's own trilinear alpha at the pixel
+      centre) in one frame and fails it in the other;
+    - depth_order: both triangles cover the centre and their f64 depths
+      there differ by less than twice the f32 depth rounding of the two
+      frames at that pixel (|frame depth - f64 depth of the triangle it
+      shows|, summed, plus 2^-22): two nearly coplanar surfaces whose
+      order each frame's rounding decides;
+    - kbuffer_tie: the alpha-tested triangle one frame shows is missing
+      from the other frame's masked layers (``ref_layers`` /
+      ``strip_layers``: each view's k-buffer outputs) at that pixel,
+      where a layer of another triangle sits at its depth (its f64
+      depth within twice that layer's own rounding plus 2^-22): the
+      k-buffer keeps one fragment per depth, so two foliage quads whose
+      f32 depths tie in one frame and not in the other change which
+      one the alpha test sees;
+    - other: none of these.
+    The first ``cap`` differing pixels are classified; ``depth_order_gap``
+    is the largest f64 depth gap among the depth_order pixels."""
+    import numpy as np
+    import torch
+    from vk_renderer_tpu_torch.graph import frame
+    ref_tid = ref_g[0]
+    tid = torch.cat([g[0] for g in strip_g])
+    h, w = ref_tid.shape
+    sh = h // len(strip_g)
+    a, b = ref_tid.cpu().numpy(), tid.cpu().numpy()
+    rd, sd_ = ref_depth.cpu().numpy(), strip_depth.cpu().numpy()
+    diff = np.argwhere(a != b)[:cap]
+    out = {"classified": int(len(diff)), "knife_edge_px": 0,
+           "alpha_threshold_px": 0, "depth_order_px": 0,
+           "kbuffer_tie_px": 0, "other_px": 0,
+           "alpha_threshold_max_margin": 0.0, "depth_order_gap": 0.0,
+           "other": []}
+    if not len(diff):
+        return out
+    pos = np.asarray(host.positions, np.float64)
+    obj = np.asarray(host.vert_obj)
+    world = np.asarray(host.obj_world, np.float64)
+    tris = np.asarray(host.tris)
+    vp = viewproj.double().cpu().numpy()
+    dev = ref_tid.device
+
+    def screen(t):
+        """(x, y, z_ndc, all w > 0) of triangle t's corners."""
+        v = tris[t]
+        hom = np.concatenate([pos[v], np.ones((3, 1))], 1)
+        clip = np.einsum("ij,kj->ki", vp, np.einsum("kij,kj->ki",
+                                                    world[obj[v]], hom))
+        xy = (clip[:, :2] / clip[:, 3:] + 1.0) * np.array([w / 2, h / 2])
+        return xy, clip[:, 2] / clip[:, 3], bool((clip[:, 3] > 0).all())
+
+    def edge_dist(t, cx, cy):
+        xy, _, _ = screen(t)
+        d = []
+        for i in range(3):
+            (x0, y0), (x1, y1) = xy[i], xy[(i + 1) % 3]
+            d.append(abs((x1 - x0) * (cy - y0) - (y1 - y0) * (cx - x0))
+                     / max(np.hypot(x1 - x0, y1 - y0), 1e-30))
+        return min(d)
+
+    def depth_at(t, cx, cy):
+        """f64 depth of triangle t at the point, None if outside it."""
+        xy, z, front = screen(t)
+        (x0, y0), (x1, y1), (x2, y2) = xy
+        det = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        if not front or det == 0.0:
+            return None
+        l1 = ((cx - x0) * (y2 - y0) - (x2 - x0) * (cy - y0)) / det
+        l2 = ((x1 - x0) * (cy - y0) - (cx - x0) * (y1 - y0)) / det
+        lam = np.array([1.0 - l1 - l2, l1, l2])
+        return float(lam @ z) if (lam >= -1e-9).all() else None
+
+    def alphas(g, t, px, py):
+        return frame._winner_alpha(
+            scene, torch.as_tensor(t, dtype=torch.int32, device=dev), g[1],
+            g[2], torch.as_tensor(px, dtype=torch.float32, device=dev),
+            torch.as_tensor(py, dtype=torch.float32, device=dev)).cpu()
+
+    # each pixel's alpha-tested triangles: the alpha test in both frames
+    pairs = [(k, t) for k, (y, x) in enumerate(diff)
+             for t in {int(a[y, x]), int(b[y, x])} if t in masked]
+    flips = {}
+    if pairs:
+        ks = np.array([k for k, _ in pairs])
+        ts = np.array([t for _, t in pairs])
+        ys, xs = diff[ks, 0], diff[ks, 1]
+        al_ref = alphas(ref_g, ts, xs + 0.5, ys + 0.5).numpy()
+        al_str = np.empty_like(al_ref)
+        for i, g in enumerate(strip_g):
+            m = ys // sh == i
+            if m.any():
+                al_str[m] = alphas(g, ts[m], xs[m] + 0.5,
+                                   ys[m] - i * sh + 0.5).numpy()
+        for k, ar, as_ in zip(ks, al_ref, al_str):
+            if (ar >= 0.5) != (as_ >= 0.5):
+                flips[int(k)] = max(flips.get(int(k), 0.0),
+                                    abs(float(ar) - 0.5),
+                                    abs(float(as_) - 0.5))
+    # each pixel's masked layers in the single frame and in its strip
+    cols = -(-w // tile_w)
+    sentinel = int(host.num_triangles)
+    layers_a = layers_at(ref_layers, [tuple(p) for p in diff], tile_h,
+                         tile_w, cols, sentinel)
+    layers_b = [None] * len(diff)
+    for i, outs in enumerate(strip_layers):
+        ks = [k for k, (y, _) in enumerate(diff) if y // sh == i]
+        for k, lay in zip(ks, layers_at(
+                outs, [(int(diff[k][0]) - i * sh, int(diff[k][1]))
+                       for k in ks], tile_h, tile_w, cols, sentinel)):
+            layers_b[k] = lay
+
+    def tie(t, cx, cy, layers):
+        """Alpha-tested ``t`` missing from ``layers``, with a layer of
+        another triangle at its depth (within that layer's rounding)."""
+        if t not in masked or any(u == t for u, _ in layers):
+            return False
+        zt = depth_at(t, cx, cy)
+        if zt is None:
+            return False
+        for u, zu in layers:
+            zu64 = depth_at(u, cx, cy)
+            if zu64 is not None and (abs(zt - zu)
+                                     <= 2.0 * abs(zu - zu64) + 2.0 ** -22):
+                return True
+        return False
+
+    for k, (y, x) in enumerate(diff):
+        cx, cy = x + 0.5, y + 0.5
+        ts = [int(t) for t in (a[y, x], b[y, x]) if t >= 0]
+        if min(edge_dist(t, cx, cy) for t in ts) < 1e-3:
+            out["knife_edge_px"] += 1
+        elif k in flips:
+            out["alpha_threshold_px"] += 1
+            out["alpha_threshold_max_margin"] = max(
+                out["alpha_threshold_max_margin"], flips[k])
+        else:
+            zs = [depth_at(t, cx, cy) for t in ts]
+            gap = rounding = None
+            if len(ts) == 2 and None not in zs:
+                gap = abs(zs[0] - zs[1])
+                rounding = 2.0 * (abs(float(rd[y, x]) - zs[0])
+                                  + abs(float(sd_[y, x]) - zs[1])) + 2.0 ** -22
+            if gap is not None and gap <= rounding:
+                out["depth_order_px"] += 1
+                out["depth_order_gap"] = max(out["depth_order_gap"], gap)
+            elif tie(int(a[y, x]), cx, cy, layers_b[k]) or tie(
+                    int(b[y, x]), cx, cy, layers_a[k]):
+                out["kbuffer_tie_px"] += 1
+            else:
+                out["other_px"] += 1
+                if len(out["other"]) < 8:
+                    out["other"].append([int(y), int(x), int(a[y, x]),
+                                         int(b[y, x]), zs, gap, rounding,
+                                         layers_a[k][:12], layers_b[k][:12]])
+    return out
+
+
+def strip_kernel_checks(recs: dict) -> dict:
+    """Every launch recorded on one strip frame run again on its recorded
+    inputs beside its plain version: raster kernels bit for bit (depth
+    as int32 bits, ids), post kernels within POST_ULP.  Per kernel: the
+    calls, the input shapes, the calls that disagree, max |difference|
+    and (post kernels) max ulp."""
+    import torch
+    from vk_renderer_tpu_torch.ops import post
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    from vk_renderer_tpu_torch.ops.common import max_ulp
+    plain = {"raster_depth": rk.rasterize_depth_grid_plain,
+             "raster_layers": rk.rasterize_layers_grid_plain,
+             "tonemap": post.tonemap_plain, "gradient": post.gradient_plain}
+    out = {}
+    for name, rec in recs.items():
+        row = {"calls": len(rec.calls), "shapes": set(), "disagree": 0,
+               "max_abs_err": 0.0, "max_ulp": None}
+        for args, kw in rec.calls:
+            k = rec.real(*args, **kw)
+            p = plain[name](*args, **kw)
+            if name.startswith("raster"):
+                row["shapes"].add(tuple(args[3].shape))
+                ok = (torch.equal(k[0].view(torch.int32),
+                                  p[0].view(torch.int32))
+                      and torch.equal(k[1], p[1]))
+                err = float((k[0] - p[0]).abs().max()) if k[0].numel() else 0.0
+            else:
+                row["shapes"].add(tuple(k.shape))
+                ulp = max_ulp(k, p)
+                row["max_ulp"] = max(row["max_ulp"] or 0, ulp)
+                ok = ulp <= POST_ULP
+                finite = torch.isfinite(k) & torch.isfinite(p)
+                err = (float((k - p)[finite].abs().max())
+                       if bool(finite.any()) else 0.0)
+            row["disagree"] += int(not ok)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["shapes"] = sorted(row["shapes"])
+        out[name] = row
+    return out
+
+
+def strip_gate(name: str, chk: dict, stats: dict, n_px: int) -> list:
+    """The failed gates of one strip frame (strip_check's and flip_kinds'
+    dicts): overflow 0, colour mismatch under 0.5%, depth within 2e-3 on
+    every pixel whose visible triangle is the same in both frames, at
+    most 0.05% of the pixels with another visible triangle and each of
+    those explained (flip_kinds), triangles in range, the uncovered
+    pixels equal."""
+    bad = [f"{name} {k} = {stats[k]}" for k in
+           ("bin_overflow", "peel_overflow", "sparse_overflow") if stats[k]]
+    if not chk["mismatch_fraction"] < 0.005:
+        bad.append(f"{name}: mismatch fraction {chk['mismatch_fraction']}")
+    if not chk["same_id_max_depth_diff"] <= 2e-3:
+        bad.append(f"{name}: depth differs by "
+                   f"{chk['same_id_max_depth_diff']} on a pixel whose "
+                   f"visible triangle is the same")
+    if not chk["id_diff_px"] <= 5e-4 * n_px:
+        bad.append(f"{name}: {chk['id_diff_px']} pixels show another "
+                   f"triangle")
+    if chk["other_px"] or chk["classified"] < chk["id_diff_px"]:
+        bad.append(f"{name}: pixels with another triangle unexplained: "
+                   f"{chk['other_px']} ({chk['other']})")
+    if not (chk["triangles_in_range"] and chk["background_bit_equal"]
+            and chk["background_px"] > 0):
+        bad.append(f"{name}: triangles or background differ ({chk})")
+    return bad
+
+
+def bench_config():
+    """The bench frame's settings, config and camera (phase 4's)."""
+    import numpy as np
+    from vk_renderer_tpu_torch.graph import driver
+    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+    from vk_renderer_tpu_torch.scene.camera import Camera
+    settings = RenderSettings(enable_shadows=True, shadow_mode=3,
+                              enable_postprocess=True)
+    cfg = driver.config_from_settings(settings, WIDTH, HEIGHT,
+                                      shadow_size=SHADOW_SIZE)
+    cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
+    cam.yaw = np.pi / 2
+    return settings, cfg, cam
+
+
+def world_rank(rank: int, tmp: str) -> None:
+    """One rank of the two-process world on the one card: loads the
+    replica, joins the gloo group through a FileStore in ``tmp``, renders
+    the bench frame through render_frame_sharded(group=...) (one warm-up
+    and WORLD_FRAMES timed frames); rank 0 saves the last assembled frame,
+    the mean frame time and its launch counts into ``tmp``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from vk_renderer_tpu_torch.graph import driver
+    from vk_renderer_tpu_torch.ops import post
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    from vk_renderer_tpu_torch.parallel import sharded
+    from vk_renderer_tpu_torch.scene import ktx
+    from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    dev = torch.device("cuda", 0)
+    b = SceneBuilder()
+    b.load_gltf("assets/sponza_replica/Sponza.glb", "sponza")
+    b.cubemap = ktx.load_cubemap("assets/sponza_replica/pisa_cube.ktx")
+    scene = scene_to_torch(b.build(), dev)
+    settings, cfg, cam = bench_config()
+    sd, st = driver.frame_inputs(scene, cam, settings, cfg)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), 2), rank=rank, world_size=2,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        group = dist.group.WORLD
+        sharded.render_frame_sharded(scene, sd, st, cfg, group=group)
+        wrappers = (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
+                    post.tonemap, post.gradient)
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(WORLD_FRAMES):
+            out = sharded.render_frame_sharded(scene, sd, st, cfg,
+                                               group=group)
+        torch.cuda.synchronize()
+        ms = 1000.0 * (time.perf_counter() - t0) / WORLD_FRAMES
+        if rank == 0:
+            torch.save({"color": out["color"].cpu(),
+                        "depth": out["depth"].cpu(),
+                        "color_u8": out["color_u8"].cpu(),
+                        "stats_vec": out["stats_vec"].cpu(),
+                        "gathered_on": out["color"].device.type,
+                        "frame_ms": ms,
+                        "launches": [fn.launches for fn in wrappers]},
+                       os.path.join(tmp, "rank0.pt"))
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -401,12 +800,14 @@ def main() -> int:
                     "and has no CPU fallback")
     try:
         import numpy as np
+        from vk_renderer_tpu_torch import native_bridge
         from vk_renderer_tpu_torch.app import headless
         from vk_renderer_tpu_torch.graph import driver, frame, profiler
         from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
         from vk_renderer_tpu_torch.ops import post, shade
         from vk_renderer_tpu_torch.ops import raster_kernels as rk
         from vk_renderer_tpu_torch.ops.common import cdiv, from_tiles
+        from vk_renderer_tpu_torch.parallel import sharded
         from vk_renderer_tpu_torch.scene import ktx, procedural
         from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
         from vk_renderer_tpu_torch.scene.camera import Camera
@@ -472,29 +873,44 @@ def main() -> int:
         emit({"phase": "build", "ok": False, "error": str(e)[-2000:]})
         return fail("kernel build failed")
 
-    # ---- 3. scenes
+    # ---- 3. scenes: the replica with the NumPy heap (the frame's), then
+    # again through the native bridge (built first, outside the load time)
+    def load_replica(native):
+        t0 = time.perf_counter()
+        rb = SceneBuilder(native_textures=native)
+        rb.load_gltf("assets/sponza_replica/Sponza.glb", "sponza")
+        rb.cubemap = ktx.load_cubemap("assets/sponza_replica/pisa_cube.ktx")
+        return rb, rb.build(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    b = SceneBuilder()
-    b.load_gltf("assets/sponza_replica/Sponza.glb", "sponza")
-    b.cubemap = ktx.load_cubemap("assets/sponza_replica/pisa_cube.ktx")
-    host = b.build()
+    b, host, load_s = load_replica(False)
     scene = scene_to_torch(host, dev)
     torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bridge = native_bridge.available()
+    bridge_build_s = time.perf_counter() - t0
+    native_load_s = texel_diff = None
+    if bridge:
+        _, nat_host, native_load_s = load_replica(True)
+        texel_diff = int((nat_host.textures.texels
+                          != host.textures.texels).sum())
+        del nat_host
     emit({"phase": "scene", "scene": "sponza_replica",
           "triangles": int(host.num_triangles),
           "opaque": host.n_opaque, "masked": host.n_masked,
           "masked_raster": host.n_masked_raster,
           "transparent": host.n_transparent,
           "textures": int(host.textures.n_mips.shape[0]),
-          "seconds": time.perf_counter() - t0})
+          "heap": "numpy", "load_s": load_s,
+          "native_bridge": bridge, "bridge_build_s": bridge_build_s,
+          "load_s_native": native_load_s,
+          "heap_texels": int(host.textures.texels.size),
+          "native_heap_texels_differing": texel_diff,
+          "seconds": seconds})
 
     # ---- 4. the bench frame
-    settings = RenderSettings(enable_shadows=True, shadow_mode=3,
-                              enable_postprocess=True)
-    cfg = driver.config_from_settings(settings, WIDTH, HEIGHT,
-                                      shadow_size=SHADOW_SIZE)
-    cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
-    cam.yaw = np.pi / 2
+    settings, cfg, cam = bench_config()
     reset_counts()
     with Recorder(rk, "rasterize_depth_grid") as rec_d, \
             Recorder(rk, "rasterize_layers_grid") as rec_k, \
@@ -524,6 +940,7 @@ def main() -> int:
     if not (finite and shape_ok):
         failures.append("frame output not finite or misshapen")
     gate_launches("bench frame", launches, KERNELS)
+    ref4 = {"color": color, "depth": out["depth"], "stats": stats}
     del out, color
 
     # ---- 5. kernels vs plain versions on the frame's own inputs
@@ -581,6 +998,24 @@ def main() -> int:
             lambda *a: post.gradient_plain(*a, extent_h=HEIGHT),
             (HEIGHT, WIDTH, st["bg_top"], st["bg_bottom"]),
             4 * 3 * HEIGHT * WIDTH + 32, 5 * 3 * HEIGHT))
+        # the strip form: rows STRIP_ROW0 .. 2 * STRIP_ROW0 of the frame
+        sh = STRIP_ROW0
+        g_strip = compare_post(
+            "gradient",
+            f"strip_3x{sh}x{WIDTH}_row0_{STRIP_ROW0}_extent_{HEIGHT}",
+            lambda *a: post.gradient(*a, extent_h=HEIGHT, row0=STRIP_ROW0),
+            lambda *a: post.gradient_plain(*a, extent_h=HEIGHT,
+                                           row0=STRIP_ROW0),
+            (sh, WIDTH, st["bg_top"], st["bg_bottom"]),
+            4 * 3 * sh * WIDTH + 32, 5 * 3 * sh)
+        checks["gradient"].append(g_strip)
+        whole = post.gradient(HEIGHT, WIDTH, st["bg_top"], st["bg_bottom"],
+                              extent_h=HEIGHT)
+        strip = post.gradient(sh, WIDTH, st["bg_top"], st["bg_bottom"],
+                              extent_h=HEIGHT, row0=STRIP_ROW0)
+        if not torch.equal(strip, whole[:, STRIP_ROW0:STRIP_ROW0 + sh]):
+            failures.append("the gradient strip differs from the whole "
+                            "frame's rows")
     except Exception:
         traceback.print_exc()
         failures.append("kernel check raised")
@@ -632,14 +1067,18 @@ def main() -> int:
             runs[tag].append(1000.0 * (time.perf_counter() - t0)
                              / EXACT_FRAMES)
         e_launches = read_counts()
-        cs, ds = (frame.stats_from_vec(outs[t]["stats_vec"])
-                  for t in ("classified", "dense"))
-        cu8, du8 = (outs[t]["color_u8"].cpu().numpy()
-                    for t in ("classified", "dense"))
-        same = bool(np.array_equal(cu8, du8))
+        # the classifier's static-mode windows: the same image
+        outs["static"] = driver.render(scene, cam, settings,
+                                       dataclasses.replace(
+                                           cfg, shadow_traced_windows=False))
+        cs, ds, ss = (frame.stats_from_vec(outs[t]["stats_vec"])
+                      for t in ("classified", "dense", "static"))
+        cu8, du8, su8 = (outs[t]["color_u8"].cpu().numpy()
+                         for t in ("classified", "dense", "static"))
+        same = bool(np.array_equal(cu8, du8) and np.array_equal(cu8, su8))
         p = psnr(cu8.astype(np.float32) / 255.0,
                  du8.astype(np.float32) / 255.0)
-        stats_equal = all(cs[k] == ds[k] for k in frame.STATS_KEYS
+        stats_equal = all(cs[k] == ds[k] == ss[k] for k in frame.STATS_KEYS
                           if k != "fallback_px")
         emit({"phase": "exactness", "width": WIDTH, "height": HEIGHT,
               "frames_per_run": EXACT_FRAMES,
@@ -647,7 +1086,9 @@ def main() -> int:
               "frame_ms_dense": runs["dense"], "u8_equal": same,
               "psnr_db": p, "stats_classified": cs, "stats_dense": ds,
               "stats_equal_but_fallback": stats_equal,
-              "fallback_px": cs["fallback_px"], "launches": e_launches})
+              "fallback_px": cs["fallback_px"],
+              "fallback_px_static_windows": ss["fallback_px"],
+              "launches": e_launches})
         del outs
         gate_stats("classified frame", cs)
         gate_stats("dense frame", ds)
@@ -679,7 +1120,143 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"passes phase {tag} raised")
 
-    # ---- the procedural scene of phases 9 and 11, built after the bench
+    # ---- 9. sharded strips of the bench frame on the card
+    sd_b, st_b = driver.frame_inputs(scene, cam, settings, cfg)
+    sharded_launches = {name: 0 for name in KERNELS}
+    strip_errs = {name: 0.0 for name in KERNELS}
+    two_strips = None
+    masked_ids = range(host.n_opaque, host.n_opaque + host.n_masked)
+
+    def dense_views(rec):
+        """(tid, rows, vattr) of each view's dense G-buffer build."""
+        return [(a[2], a[3], a[4]) for a, _ in rec.calls if a[2].dim() == 2]
+
+    def rerun(calls):
+        """The k-buffer outputs of recorded calls, run again."""
+        return [rk.rasterize_layers_grid(*a, **kw) for a, kw in calls]
+
+    with Recorder(frame, "_build_gbuffer") as rec_g, \
+            Recorder(rk, "rasterize_layers_grid") as rec_l:
+        frame.render_frame(scene, sd_b, st_b, cfg)
+    (ref_g,) = dense_views(rec_g)
+    ref_layers = rerun(rec_l.calls)
+    del rec_g, rec_l
+    for n in STRIPS:
+        try:
+            reset_counts()
+            t0 = time.perf_counter()
+            s_out = sharded.render_frame_sharded(scene, sd_b, st_b, cfg, n=n)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(SHARDED_FRAMES):
+                s_out = sharded.render_frame_sharded(scene, sd_b, st_b, cfg,
+                                                     n=n)
+            torch.cuda.synchronize()
+            s_ms = 1000.0 * (time.perf_counter() - t0) / SHARDED_FRAMES
+            s_launches = read_counts()
+            for name in KERNELS:
+                sharded_launches[name] += s_launches[name]
+            # per strip, after the counted run: its shadow rows, then its
+            # view over the joined maps, every kernel launch recorded
+            shadow_ms, view_ms, strips = [], [], []
+            with contextlib.ExitStack() as stack:
+                recs = {name: stack.enter_context(Recorder(owner, attr))
+                        for name, (owner, attr) in (
+                            ("raster_depth", (rk, "rasterize_depth_grid")),
+                            ("raster_layers", (rk, "rasterize_layers_grid")),
+                            ("tonemap", (frame.POSTPROCESS_REGISTRY,
+                                         "tonemap")),
+                            ("gradient", (post, "gradient")))}
+                rec_g = stack.enter_context(Recorder(frame, "_build_gbuffer"))
+                for i in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    strips.append(sharded.shadow_strip(scene, sd_b, cfg, i,
+                                                       n))
+                    torch.cuda.synchronize()
+                    shadow_ms.append(1000.0 * (time.perf_counter() - t0))
+                maps = torch.cat([m for m, _ in strips], 1)
+                ends = []       # each strip's last k-buffer call
+                for i, (_, ovf) in enumerate(strips):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    sharded.view_strip(scene, sd_b, st_b, cfg, i, n, maps,
+                                       ovf)
+                    torch.cuda.synchronize()
+                    view_ms.append(1000.0 * (time.perf_counter() - t0))
+                    ends.append(len(recs["raster_layers"].calls))
+            strip_g = dense_views(rec_g)
+            lcalls = recs["raster_layers"].calls
+            strip_layers = [rerun(lcalls[b0:b1])
+                            for b0, b1 in zip([0] + ends[:-1], ends)]
+            kinds = flip_kinds(host, scene, sd_b["viewproj"], ref_g,
+                               strip_g, masked_ids, ref4["depth"],
+                               s_out["depth"], ref_layers, strip_layers,
+                               cfg.tile_h, cfg.tile_w)
+            del strip_layers
+            tid = torch.cat([g[0] for g in strip_g])
+            del strips, maps, rec_g
+            s_stats = frame.stats_from_vec(s_out["stats_vec"])
+            chk = {**strip_check(ref4, s_out, n, ref_g[0], tid), **kinds}
+            emit({"phase": "sharded", "strips": n, "width": WIDTH,
+                  "height": HEIGHT, "strip_height": HEIGHT // n,
+                  "warmup_s": warm_s, "frames": SHARDED_FRAMES,
+                  "frame_ms": s_ms, "frame_ms_single": frame_ms,
+                  "strip_shadow_ms": shadow_ms, "strip_view_ms": view_ms,
+                  "stats": s_stats, "launches": s_launches, **chk})
+            failures.extend(strip_gate(f"{n} strips", chk, s_stats,
+                                       WIDTH * HEIGHT))
+            gate_launches(f"{n} strips", s_launches, KERNELS)
+            # the kernels at the strips' shapes against their plain versions
+            kc = strip_kernel_checks(recs)
+            del recs, strip_g, tid
+            emit({"phase": "sharded_kernels", "strips": n, **kc})
+            for name, row in kc.items():
+                strip_errs[name] = max(strip_errs[name], row["max_abs_err"])
+                if row["calls"] == 0 or row["disagree"]:
+                    failures.append(f"{n} strips: {name} disagrees with its "
+                                    f"plain version on {row['disagree']} of "
+                                    f"{row['calls']} launches")
+            if n == 2:
+                two_strips = s_out
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"sharded phase n={n} raised")
+    # a world of two processes on the one card, against the n = 2 frame
+    try:
+        import tempfile
+        import torch.multiprocessing as mp
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            mp.spawn(world_rank, args=(tmp,), nprocs=2, join=True)
+            world_s = time.perf_counter() - t0
+            got = torch.load(os.path.join(tmp, "rank0.pt"))
+        if two_strips is None:
+            raise RuntimeError("no n = 2 frame to compare the world with")
+        same = {k: bool(torch.equal(
+                    got[k].view(torch.int32) if k in ("color", "depth")
+                    else got[k],
+                    two_strips[k].cpu().view(torch.int32)
+                    if k in ("color", "depth") else two_strips[k].cpu()))
+                for k in ("color", "depth", "color_u8", "stats_vec")}
+        emit({"phase": "sharded_world", "ranks": 2, "backend": "gloo",
+              "gathered_on": got["gathered_on"], "frames": WORLD_FRAMES,
+              "frame_ms": got["frame_ms"], "seconds": world_s,
+              "rank0_launches": dict(zip(wrappers, got["launches"])),
+              "bit_equal_to_2_strips": same,
+              "stats": frame.stats_from_vec(got["stats_vec"])})
+        if not all(same.values()):
+            failures.append(f"the two-process world differs from the "
+                            f"2-strip frame: {same}")
+        if got["gathered_on"] != "cuda":
+            failures.append("the world's frame was not gathered on the card")
+    except Exception:
+        traceback.print_exc()
+        failures.append("sharded world failed to form or to gather")
+    del ref4, two_strips, ref_g, ref_layers
+
+    # ---- the procedural scene of phases 10 and 12, built after the bench
     # frame so that phase 4 runs as it did before this scene existed
     t0 = time.perf_counter()
     like_host = procedural.build_sponza_like().build()
@@ -691,7 +1268,7 @@ def main() -> int:
           "transparent": like_host.n_transparent,
           "seconds": time.perf_counter() - t0})
 
-    # ---- 9. frame parity: kernels vs plain versions at 480x272
+    # ---- 10. frame parity: kernels vs plain versions at 480x272
     # faces the pane at x = 3 from its front (+z) side, far enough that
     # the pane's triangles stay under the binner's big-triangle capacity
     # (from (3, 2.5, 3.5) they overflow it at 1080p)
@@ -740,7 +1317,7 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"parity phase {tag} raised")
 
-    # ---- 10. small-input reference: GPU frame vs the port's CPU path
+    # ---- 11. small-input reference: GPU frame vs the port's CPU path
     try:
         fb = SceneBuilder()
         fb.load_gltf(FIXTURE, "fixture")
@@ -769,7 +1346,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("reference phase raised")
 
-    # ---- 11. the transparent pass at full width
+    # ---- 12. the transparent pass at full width
     try:
         tcfg = driver.config_from_settings(t_settings, WIDTH, HEIGHT,
                                            shadow_size=SHADOW_SIZE)
@@ -826,7 +1403,7 @@ def main() -> int:
         traceback.print_exc()
         failures.append("transparent phase raised")
 
-    # ---- 12. the headless CLI, in-process
+    # ---- 13. the headless CLI, in-process
     del like
     runs = [("sponza_like", ["--scene", "sponza_like", "--frames", "3",
                              "--width", str(WIDTH), "--height", str(HEIGHT),
@@ -870,8 +1447,10 @@ def main() -> int:
         cs = checks[name]
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(c["max_abs_err"] for c in cs),
+                "replaces": replaces,
+                "launches": launches[name] + sharded_launches[name],
+                "max_abs_err": max([c["max_abs_err"] for c in cs]
+                                   + [strip_errs[name]]),
                 "max_ulp": max((c["max_ulp"] for c in cs
                                 if c["max_ulp"] is not None), default=None),
                 "ms": cs[0]["ms"], "ms_eager": cs[0]["ms_eager"],

@@ -28,6 +28,8 @@ from vk_renderer_tpu_torch.ops import texture as ttex
 from vk_renderer_tpu_torch.scene.camera import Camera
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "textured_box",
                        "scene.gltf")
@@ -113,6 +115,22 @@ def test_classify_masks_match_jax(mode, structured, quad, fine):
     """_classify_shadow's lit and blocked masks, and its parts, equal the
     JAX function's called with a Python int mode, on the same coordinates
     (the port's shadow_coords, so the two classifiers see equal inputs)."""
+    _check_masks(mode, structured, quad, fine, traced=False)
+
+
+@pytest.mark.parametrize("fine", [False, True], ids=["nofine", "fine"])
+@pytest.mark.parametrize("quad", [False, True], ids=["noquad", "quad"])
+@pytest.mark.parametrize("structured", [True, False],
+                         ids=["structured", "random"])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_traced_classify_masks_match_jax(mode, structured, quad, fine):
+    """With ``traced_windows`` the masks and parts equal the JAX
+    function's called with the mode as an array, as the JAX frame's
+    traced mode calls it (eagerly)."""
+    _check_masks(mode, structured, quad, fine, traced=True)
+
+
+def _check_masks(mode, structured, quad, fine, traced):
     packed, sd, g, _ = _setup(100 + 8 * mode + 4 * structured + 2 * quad
                               + fine, structured)
     coarse, fine_t = _tables(packed)
@@ -122,9 +140,10 @@ def test_classify_masks_match_jax(mode, structured, quad, fine):
     got = tshade._classify_shadow(
         coarse, su, sv, sz, layer, 256, mode, return_parts=True,
         shadow_rows=T(packed) if quad else None,
-        shadow_fine=fine_t if fine else None)
+        shadow_fine=fine_t if fine else None, traced_windows=traced)
     want = jshade._classify_shadow(
-        J(coarse), J(su), J(sv), J(sz), J(layer), 256, mode,
+        J(coarse), J(su), J(sv), J(sz), J(layer), 256,
+        jnp.asarray(mode) if traced else mode,
         return_parts=True, shadow_rows=J(packed) if quad else None,
         shadow_fine=J(fine_t) if fine else None)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
@@ -375,21 +394,68 @@ def cube_csm():
 @pytest.mark.parametrize("variant", [
     {"shadow_classify_cap": 0},
     {"shadow_fine_classify": False},
-    {"shadow_classify_cap": 0, "shadow_sparse_cap": 1 << 20}],
-    ids=["dense", "coarse_only", "plain_compaction"])
+    {"shadow_classify_cap": 0, "shadow_sparse_cap": 1 << 20},
+    {"shadow_traced_windows": False}],
+    ids=["dense", "coarse_only", "plain_compaction", "static_windows"])
 def test_cube_csm_frame_is_the_same_image(cube_csm, variant):
     """The cube_csm golden frame with the default classified shadows
-    equals the same frame on another shadow path: identical u8 image,
-    equal stats but fallback_px (the classifier's cap misses)."""
+    (the JAX frame's traced windows) equals the same frame on another
+    shadow path: identical u8 image, equal stats.  ``fallback_px`` (the
+    classifier's cap misses) is 0 on every path here: the auto cap holds
+    every uncertain pixel."""
     scene, cam, settings, cfg, base = cube_csm
     assert cfg.shadow_classify_cap == -1 and cfg.enable_shadows
+    assert cfg.shadow_traced_windows
     other = driver.render(scene, cam, settings,
                           dataclasses.replace(cfg, **variant))
     np.testing.assert_array_equal(base["color_u8"].numpy(),
                                   other["color_u8"].numpy())
     s0 = frame.stats_from_vec(base["stats_vec"])
     s1 = frame.stats_from_vec(other["stats_vec"])
-    for k in frame.STATS_KEYS:
-        if k != "fallback_px":
-            assert s0[k] == s1[k], k
+    assert s0 == s1
     assert s0["sparse_overflow"] == 0 and s0["bin_overflow"] == 0
+
+
+def test_cube_csm_tiny_cap_stats_equal_the_jax_frame(cube_csm):
+    """At a classifier cap of 64 pixels both frames miss their caps; with
+    the traced windows the port's uncertain pixels are the JAX frame's,
+    so every stat, fallback_px included, equals the JAX render_frame's.
+    The JAX frame's terms the port has no counterpart for are 0 here:
+    the cube has no masked triangles (no tail-tile cap), and its pair
+    caps are off (0) or the full emission length, which no pair count
+    exceeds (no pair_cap fallback)."""
+    from vk_renderer_tpu.graph import driver as jdriver
+    from vk_renderer_tpu.graph import frame as jframe
+    from vk_renderer_tpu.scene import procedural
+    from test_torch_frame import _golden_configs
+    scene, cam, settings, cfg, _ = cube_csm
+    _, _, jsettings, jcfg = _golden_configs()["cube_csm"]
+    jcfg = dataclasses.replace(jcfg, shadow_classify_cap=64)
+    host = procedural.build_cube_scene().build()
+    assert host.n_masked == 0
+    n_tris = host.tris.shape[0]
+    for cap, span, big, size_w, size_h in (
+            (jcfg.pair_cap, jcfg.max_span, jcfg.big_cap, jcfg.width,
+             jcfg.height),
+            (jcfg.shadow_pair_cap, jcfg.shadow_max_span, jcfg.shadow_big_cap,
+             jcfg.shadow_size, jcfg.shadow_size)):
+        n_tiles = -(-size_w // jcfg.tile_w) * -(-size_h // jcfg.tile_h)
+        assert jframe._resolve_pair_cap(cap, n_tris, span, big, n_tiles) \
+            in (0, n_tris * span + big * n_tiles)
+    jout = jframe.render_frame(
+        host.device_put(), jdriver.scene_data_pytree(cam, jsettings, jcfg),
+        jdriver.make_settings_pytree(jsettings), jcfg)
+    want = jframe.stats_from_vec(jout["stats_vec"])
+    out = driver.render(scene, cam, settings,
+                        dataclasses.replace(cfg, shadow_classify_cap=64))
+    got = frame.stats_from_vec(out["stats_vec"])
+    assert want["fallback_px"] > 0
+    assert got == want
+    static = driver.render(scene, cam, settings, dataclasses.replace(
+        cfg, shadow_classify_cap=64, shadow_traced_windows=False))
+    np.testing.assert_array_equal(static["color_u8"].numpy(),
+                                  out["color_u8"].numpy())
+    # at CSM the traced windows differ only in the fine window's width
+    # of at least one texel: no more pixels are left uncertain here
+    assert frame.stats_from_vec(static["stats_vec"])["fallback_px"] \
+        <= got["fallback_px"]

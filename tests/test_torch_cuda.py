@@ -24,6 +24,7 @@ from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.ops import setup
 from vk_renderer_tpu_torch.ops.common import max_ulp
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
 from raster_streams import (COLS, H, N_TILES, R, SENT, TH, TW, W,
                             clip_scene, heavy_stream, pad_records,
                             synthetic_stream, whole_and_tiny_stream)
@@ -248,6 +249,65 @@ def test_gradient_kernel_matches_plain(dev, h, w, extent):
     ulp = max_ulp(got, want)
     print(f"gradient {h}x{w} extent {extent_h}: max_ulp {ulp}")
     assert ulp <= POST_ULP, ulp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0", [0, 1, 270, 810, 4093])
+@pytest.mark.parametrize("w", [1920, 130])
+def test_gradient_kernel_row_offset(dev, row0, w):
+    """The strip form: rows row0 .. row0 + h of an extent-row gradient
+    equal the plain version, and the whole frame's rows bit for bit."""
+    h, extent = 270, 4363
+    rng = np.random.default_rng(row0 + w)
+    top, bottom = (torch.from_numpy(x).to(dev) for x in rng.uniform(
+        0, 1, size=(2, 4)).astype(np.float32))
+    got = post.gradient(h, w, top, bottom, extent, row0=row0)
+    want = post.gradient_plain(h, w, top, bottom, extent, row0=row0)
+    whole = post.gradient(extent, w, top, bottom, extent)
+    torch.cuda.synchronize()
+    assert max_ulp(got, want) <= POST_ULP
+    assert torch.equal(got, whole[:, row0:row0 + h])
+
+
+@pytest.mark.cuda
+def test_strips_on_the_card_equal_the_cpu_strips(dev, monkeypatch):
+    """The cube with shadows at 256x128 as 2 strips
+    (parallel/sharded.py) on the card and on the CPU: every depth raster
+    of the frame (each strip's shadow cascade rows and camera rows) gives
+    the same depth bits and triangle ids on both."""
+    from vk_renderer_tpu_torch.graph import driver, frame
+    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+    from vk_renderer_tpu_torch.parallel import sharded
+    from vk_renderer_tpu_torch.scene import procedural
+    from vk_renderer_tpu_torch.scene.camera import Camera
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    host = procedural.build_cube_scene().build()
+    settings = RenderSettings(enable_shadows=True, shadow_mode=0)
+    cfg = frame.FrameConfig(width=256, height=128, cap_opaque=128,
+                            cap_masked=64, cap_transparent=64,
+                            shadow_size=256, shadow_cap=256,
+                            enable_shadows=True)
+    rasters = {}
+    real = raster.rasterize_plan
+    for where in ("cpu", dev):
+        seen = rasters.setdefault(str(where), [])
+
+        def spy(*args, **kw):
+            out = real(*args, **kw)
+            seen.append([t.cpu() for t in out])
+            return out
+
+        monkeypatch.setattr(raster, "rasterize_plan", spy)
+        scene = scene_to_torch(host, where)
+        sd, st = driver.frame_inputs(scene, Camera(), settings, cfg)
+        out = sharded.render_frame_sharded(scene, sd, st, cfg, n=2)
+        assert frame.stats_from_vec(out["stats_vec"])["bin_overflow"] == 0
+    cpu, card = rasters["cpu"], rasters[str(dev)]
+    # per strip: its rows of every cascade, then its camera rows
+    assert len(cpu) == len(card) == 2 * (cfg.shadow_cascades + 1)
+    for (cd, ci), (gd, gi) in zip(cpu, card):
+        assert torch.equal(cd.view(torch.int32), gd.view(torch.int32))
+        assert torch.equal(ci, gi)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,8 @@ from vk_renderer_tpu_torch.scene.camera import Camera
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 from vk_renderer_tpu_torch.utils.image import psnr
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "goldens")
 PORTED = ("cube_flat_bg", "cube_pbr_sky_tonemap", "cube_csm",
@@ -33,9 +35,12 @@ def _golden_configs():
 
 
 def port_config(cfg):
-    """The JAX FrameConfig's semantic fields under the port's names."""
+    """The JAX FrameConfig's semantic fields under the port's names (the
+    port's own fields, such as ``shadow_traced_windows``, keep their
+    defaults)."""
     names = {f.name for f in dataclasses.fields(frame.FrameConfig)}
-    return frame.FrameConfig(**{n: getattr(cfg, n) for n in names})
+    return frame.FrameConfig(**{n: getattr(cfg, n) for n in names
+                                if hasattr(cfg, n)})
 
 
 def port_settings(settings):

@@ -15,6 +15,8 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "textured_box",
                        "scene.gltf")

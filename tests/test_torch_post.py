@@ -16,6 +16,8 @@ import torch
 from vk_renderer_tpu.ops import post as jpost
 from vk_renderer_tpu_torch.ops import post
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 ATOL = 1e-6
 
 

@@ -16,6 +16,8 @@ from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
 from vk_renderer_tpu_torch.scene.camera import Camera
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 STAGES = ("setup", "bin", "records", "raster_opaque", "masked_kraster0",
           "masked", "gbuffer", "shadow", "shade", "compose", "transparent",
           "tonemap", "full_frame")

@@ -29,6 +29,7 @@ from vk_renderer_tpu_torch.ops import raster as traster
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.ops import setup as tsetup
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
 from raster_streams import (COLS, H, N_TILES, R, ROWS, SENT, TH, TW,
                             W, clip_scene, pad_records, synthetic_stream)
 

@@ -24,7 +24,9 @@ import torch
 
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 
-from raster_streams import heavy_stream, random_records, synthetic_stream
+import torch_threads  # noqa: F401  (bounds torch's threads)
+from raster_streams import (heavy_stream, pack_tiles, random_records,
+                            synthetic_stream, whole_and_tiny_stream)
 
 TW = 128
 TH = 16                      # two 8-row bands
@@ -275,4 +277,38 @@ def test_culled_walk_equals_the_plain_versions(case):
     assert torch.equal(got_i, want_i.reshape(-1))
     if case == "init2":
         # culled band-hitting records do win here (the fold matters)
+        assert bool(((want_d == 2.0) & (want_i != SENT)).any())
+
+
+CULL_STREAMS = {
+    "random": lambda: pack_tiles([random_records(21, 640, TH, x_max=TW + 8),
+                                  random_records(22, 90, TH)]),
+    "heavy": lambda: heavy_stream(23, TH),
+    "whole_and_tiny": lambda: whole_and_tiny_stream(24, TH),
+}
+
+
+@pytest.mark.parametrize("case", ["init1", "init2", "floor"])
+@pytest.mark.parametrize("source", list(CULL_STREAMS))
+def test_culled_cpu_depth_path_equals_the_plain_version(source, case):
+    """rasterize_depth_grid_culled (the frame's CPU path: per 8x8 block,
+    the records its footprint test keeps plus the latest culled one)
+    equals the unculled plain version bit for bit."""
+    rec, start, counts = (torch.from_numpy(x) for x in
+                          CULL_STREAMS[source]())
+    g = counts.shape[0]
+    rng = np.random.default_rng(25)
+    init_d = torch.full((g, TH, TW), 2.0 if case == "init2" else 1.0)
+    init_i = torch.full((g, TH, TW), SENT, dtype=torch.int32)
+    floor = (torch.from_numpy(rng.choice(np.array(
+        [-1.0, 0.0, 0.25, 0.5, 2.0], np.float32), (g, TH, TW)))
+        if case == "floor" else None)
+    want_d, want_i = rk.rasterize_depth_grid_plain(
+        rec, start, counts, init_d, init_i, floor, tile_h=TH)
+    got_d, got_i = rk.rasterize_depth_grid_culled(
+        rec, start, counts, init_d, init_i, floor, tile_h=TH)
+    assert torch.equal(_bits(got_d), _bits(want_d))
+    assert torch.equal(got_i, want_i)
+    if case == "init2":
+        # culled band-hitting records win at 2.0 (the kept latest matters)
         assert bool(((want_d == 2.0) & (want_i != SENT)).any())

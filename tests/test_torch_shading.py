@@ -29,6 +29,8 @@ from vk_renderer_tpu_torch.ops import skybox as tsky
 from vk_renderer_tpu_torch.ops import texture as ttex
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "textured_box",
                        "scene.gltf")

@@ -27,6 +27,7 @@ from vk_renderer_tpu_torch.ops.common import cdiv, from_tiles
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 from vk_renderer_tpu_torch.utils.image import psnr
 
+import torch_threads  # noqa: F401  (bounds torch's threads)
 import test_frame_oracle as tfo
 from test_torch_frame import port_config
 

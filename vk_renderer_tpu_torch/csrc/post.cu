@@ -5,8 +5,10 @@
 //   tonemap_kernel   replaces post.py::_tonemap_kernel  (Reinhard c/(c+1),
 //                    then exp(log(m) * (1/2.2)); shaders/tonemap.comp)
 //   gradient_kernel  replaces post.py::_gradient_kernel (vertical
-//                    top*(1-blend) + bottom*blend, blend = y * inv_h;
-//                    shaders/gradient_color.comp)
+//                    top*(1-blend) + bottom*blend, blend = (y + row0) *
+//                    inv_h; shaders/gradient_color.comp).  row0 places an
+//                    h-row strip at row row0 of a taller frame, so a
+//                    strip's rows equal the whole frame's bit for bit.
 //
 // Both work on planar f32[3, H, W] images.  Pallas cuts the image into
 // (block_h = 64)-row blocks and pads the last one; here each kernel is a
@@ -70,9 +72,11 @@ tonemap_kernel(const float* __restrict__ in, float* __restrict__ out,
 
 __device__ __forceinline__ float gradient_row(const float* top,
                                              const float* bottom,
-                                             float inv_h, int row, int h) {
+                                             float inv_h, int row, int h,
+                                             int row0) {
     const int c = row / h;
-    const float y = static_cast<float>(row - c * h);
+    // an integer below 2^24, so exact in f32 whatever the strip
+    const float y = static_cast<float>(row - c * h + row0);
     const float blend = __fmul_rn(y, inv_h);
     return __fadd_rn(__fmul_rn(top[c], __fsub_rn(1.0f, blend)),
                      __fmul_rn(bottom[c], blend));
@@ -84,7 +88,7 @@ __device__ __forceinline__ float gradient_row(const float* top,
 __global__ void __launch_bounds__(kThreads)
 gradient_kernel(const float* __restrict__ top,
                 const float* __restrict__ bottom, float inv_h,
-                float* __restrict__ out, int h, int w, int vec4) {
+                float* __restrict__ out, int h, int w, int row0, int vec4) {
     const int n = 3 * h * w;
     const int stride = gridDim.x * blockDim.x;
     const int first = blockIdx.x * blockDim.x + threadIdx.x;
@@ -92,13 +96,14 @@ gradient_kernel(const float* __restrict__ top,
         const int w4 = w / 4;
         float4* out4 = reinterpret_cast<float4*>(out);
         for (int i = first; i < n / 4; i += stride) {
-            const float v = gradient_row(top, bottom, inv_h, i / w4, h);
+            const float v = gradient_row(top, bottom, inv_h, i / w4, h,
+                                         row0);
             out4[i] = make_float4(v, v, v, v);
         }
         return;
     }
     for (int i = first; i < n; i += stride) {
-        out[i] = gradient_row(top, bottom, inv_h, i / w, h);
+        out[i] = gradient_row(top, bottom, inv_h, i / w, h, row0);
     }
 }
 
@@ -120,16 +125,17 @@ int vkr_tonemap(const float* in, float* out, int64_t n, void* stream) {
     return static_cast<int>(cudaGetLastError());
 }
 
-// The caller keeps 3*h*w below 2^31 (the indices are 32-bit).
+// The caller keeps 3*h*w below 2^31 (the indices are 32-bit) and
+// row0 + h below 2^24.
 int vkr_gradient(const float* top, const float* bottom, float inv_h,
-                 float* out, int h, int w, void* stream) {
+                 float* out, int h, int w, int row0, void* stream) {
     if (h <= 0 || w <= 0) return 0;
     const int64_t n = 3LL * h * w;
     const int vec4 = (w % 4 == 0)
                      & (reinterpret_cast<uintptr_t>(out) % 16 == 0);
     gradient_kernel<<<blocks_for(vec4 ? n / 4 : n), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-        top, bottom, inv_h, out, h, w, vec4);
+        top, bottom, inv_h, out, h, w, row0, vec4);
     return static_cast<int>(cudaGetLastError());
 }
 

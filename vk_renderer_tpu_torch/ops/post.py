@@ -51,16 +51,17 @@ def tonemap_xla(color: torch.Tensor) -> torch.Tensor:
 
 
 def gradient_plain(h: int, w: int, top: torch.Tensor, bottom: torch.Tensor,
-                   extent_h: int | None = None) -> torch.Tensor:
+                   extent_h: int | None = None,
+                   row0: int = 0) -> torch.Tensor:
     """Plain version of ``gradient``: the kernel's own form
     ``top * (1 - y * inv_h) + bottom * (y * inv_h)`` with
     ``inv_h = f32(1 / extent_h)`` (post.py:53-58 multiplies by the
-    reciprocal where gradient_xla divides).  Returns a contiguous
-    f32[3, h, w]."""
+    reciprocal where gradient_xla divides) and ``y`` the frame row,
+    ``row0`` plus the image row.  Returns a contiguous f32[3, h, w]."""
     extent_h = h if extent_h is None else extent_h
     inv_h = torch.tensor(1.0 / extent_h, dtype=torch.float32)
-    blend = (torch.arange(h, dtype=torch.float32, device=top.device)
-             * inv_h)[None, :, None]
+    blend = (torch.arange(row0, row0 + h, dtype=torch.float32,
+                          device=top.device) * inv_h)[None, :, None]
     top = top[:3].to(torch.float32).reshape(3, 1, 1)
     bottom = bottom[:3].to(torch.float32).reshape(3, 1, 1)
     return (top * (1.0 - blend) + bottom * blend).expand(3, h, w) \
@@ -88,7 +89,7 @@ def _lib() -> ctypes.CDLL:
     lib.vkr_tonemap.restype = i
     lib.vkr_tonemap.argtypes = [p, p, ctypes.c_int64, p]
     lib.vkr_gradient.restype = i
-    lib.vkr_gradient.argtypes = [p, p, ctypes.c_float, p, i, i, p]
+    lib.vkr_gradient.argtypes = [p, p, ctypes.c_float, p, i, i, i, p]
     return lib
 
 
@@ -155,12 +156,14 @@ _TONEMAP = tonemap
 # ---------------------------------------------------------------------------
 
 def gradient(h: int, w: int, top: torch.Tensor, bottom: torch.Tensor,
-             extent_h: int | None = None) -> torch.Tensor:
+             extent_h: int | None = None, row0: int = 0) -> torch.Tensor:
     """Vertical gradient image f32[3, h, w] from the rgb of ``top`` and
-    ``bottom`` (f32[>=3], the settings' colours).  On the card the kernel
-    reads both from device memory — no host round trip per frame."""
+    ``bottom`` (f32[>=3], the settings' colours): rows ``row0`` to
+    ``row0 + h`` of an ``extent_h``-tall gradient (a frame's strip; the
+    single frame has ``row0 = 0``).  On the card the kernel reads both
+    colours from device memory — no host round trip per frame."""
     if _on_cpu(top):
-        return gradient_plain(h, w, top, bottom, extent_h)
+        return gradient_plain(h, w, top, bottom, extent_h, row0)
     extent_h = h if extent_h is None else extent_h
     dev = top.device
     for name, t in (("top", top), ("bottom", bottom)):
@@ -171,13 +174,16 @@ def gradient(h: int, w: int, top: torch.Tensor, bottom: torch.Tensor,
     if 3 * h * w >= 1 << 31:
         raise ValueError(f"{h}x{w}: the gradient kernel indexes 3*h*w "
                          f"outputs with 32-bit ints")
+    if not 0 <= row0 <= (1 << 24) - h:
+        raise ValueError(f"row0={row0}: the kernel's rows are exact f32 "
+                         f"integers below 2^24")
     out = torch.empty((3, h, w), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _lib().vkr_gradient(ctypes.c_void_p(top.data_ptr()),
                                   ctypes.c_void_p(bottom.data_ptr()),
                                   1.0 / extent_h,
                                   ctypes.c_void_p(out.data_ptr()), h, w,
-                                  _stream(dev))
+                                  row0, _stream(dev))
     _raise_on(err, "gradient")
     _GRADIENT.launches += 1
     return out

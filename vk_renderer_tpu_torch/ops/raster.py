@@ -57,8 +57,10 @@ def prepare_records(plan: dict, setup_padded: dict, bbox, width: int,
 
 def rasterize_plan(plan: dict, width: int, height: int, sentinel: int,
                    tile_w: int = 128, tile_h: int = 32):
-    """Depth raster over a prepared plan from a cleared z-buffer.
-    Returns (depth f32[H, W], tri_id i32[H, W], -1 = empty)."""
+    """Depth raster over a prepared plan from a cleared z-buffer: the
+    CUDA kernel on the card, the plain version with the kernel's
+    footprint cull on the CPU (rk.rasterize_depth_grid_culled, the same
+    bits).  Returns (depth f32[H, W], tri_id i32[H, W], -1 = empty)."""
     return rk.rasterize_depth_packed(
         plan["records"], plan["rec_start"], plan["counts"], width, height,
         sentinel, tile_w=tile_w, tile_h=tile_h)

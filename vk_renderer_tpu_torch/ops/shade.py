@@ -243,7 +243,8 @@ def _window_minmax(table, cx, cy, hw, layer, map_size: int):
 
 def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
                      shadow_mode: int, return_parts: bool = False,
-                     shadow_rows=None, shadow_fine=None):
+                     shadow_rows=None, shadow_fine=None,
+                     traced_windows: bool = False):
     """Conservative per-pixel classification (shade.py:258-471).  Returns
     (lit_c, blk_c): lit_c => the mode's filter returns exactly 0.0, blk_c
     => exactly 1.0; anything not provable is left uncertain (both False),
@@ -263,13 +264,18 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
        only (the PCF disk's bounded radius plus the smallest blocker-search
        tap), proving lit and blocked close to the true penumbra.
 
-    ``shadow_mode`` is a host int, so only the JAX function's static-mode
-    branches exist here.  The JAX frame passes a traced mode, whose
-    windows are the union over all modes (wider at ``hw_pcf``); the masks
-    here equal the JAX function called with a Python int mode, not the
-    JAX frame's.  The factor is exact either way.  Every comparison keeps
-    the JAX function's f32 operation order, so the masks agree bit for
-    bit on the CPU."""
+    ``shadow_mode`` is a host int.  By default the windows are the JAX
+    function's static-mode ones (its masks called with a Python int
+    mode): Hard and PCF take their own narrow tap union.  With
+    ``traced_windows`` they are the ones the JAX frame gets, which
+    passes a traced mode: every mode takes the union window of all
+    modes (the blocker-search radius, at least one texel), the PCSS
+    proofs run for every mode, the receiver quad is gated by
+    ``mode >= 2 ? fits : mode < 1``, the fine window by
+    ``mode >= 2 ? fits : True`` and widened to ``max(rb_tex, 1)``.  Fewer
+    pixels are proven, the factor is exact either way.  Every comparison
+    keeps the JAX function's f32 operation order, so the masks agree bit
+    for bit on the CPU in both forms."""
     s = float(map_size)
     cx = su * s                      # window centre, texel-index space
     cy = sv * s
@@ -277,9 +283,10 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
     # union tap half-width (texels) before the bilinear-footprint pad:
     # Hard 0, PCF 1 texel, PCSS/CSM the blocker-search Poisson radius
     search_w = LIGHT_SIZE_UV * (sz - NEAR_PLANE) / sz
-    if shadow_mode == 0:
+    static = not traced_windows
+    if static and shadow_mode == 0:
         hw_taps = torch.zeros_like(sz)
-    elif shadow_mode == 1:
+    elif static and shadow_mode == 1:
         hw_taps = torch.ones_like(sz)
     else:
         hw_taps = torch.clamp(torch.abs(search_w) * s, min=1.0)
@@ -333,7 +340,7 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
                 "hw_lit": hw_lit, "hw_blk": hw_blk,
                 "border_lit": touches_border(hw_lit)}
 
-    if shadow_mode < 2:
+    if static and shadow_mode < 2:
         # Hard's single tap is AT the quad centre (m = 0); PCF's 3x3 taps
         # exceed one quad.  Every Hard/PCF tap lies in the lit window, so
         # the blocked proof needs no radius bound.
@@ -357,20 +364,26 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
     penumbra_bound = (sz - zb_min) / zb_min
     radius_bound = penumbra_bound * LIGHT_SIZE_UV * NEAR_PLANE / sz
     rb_tex = torch.clamp(radius_bound, min=0.0) * s
-    if shadow_rows is not None:
-        # the radius bound relies on the coarse min covering the search
-        lit_c = lit_c | (fits & quad_lit(rb_tex + _QUAD_POS_EPS))
+    # the radius bound relies on the coarse min covering the search
+    # (``fits``); the traced windows' modes < 2 need no radius: the
+    # receiver quad holds for Hard only, the fine window for both
+    pcss = static or shadow_mode >= 2
+    if shadow_rows is not None and (pcss or shadow_mode < 1):
+        quad = quad_lit(rb_tex + _QUAD_POS_EPS)
+        lit_c = lit_c | ((fits & quad) if pcss else quad)
 
     if shadow_fine is not None:
         # one fine window serves both sides: the PCF disk's bounded
-        # radius and, for the blocked side, the smallest search tap
-        # (the JAX form's max(rb_tex, union1) is rb_tex for a static mode)
+        # radius (with the traced windows at least PCF's one texel:
+        # JAX's max(rb_tex, union1)) and, for the blocked side, the
+        # smallest search tap
+        rb_f = rb_tex if static else torch.clamp(rb_tex, min=1.0)
         hw_f = torch.maximum(
-            rb_tex + _CLASSIFY_PAD,
+            rb_f + _CLASSIFY_PAD,
             _POISSON_MIN_MAG * torch.abs(search_w) * s + _CLASSIFY_PAD)
         f_lit, f_blk = fine_minmax(hw_f)
-        lit_c = lit_c | (fits & f_lit)
-        blk_fine = fits & f_blk
+        lit_c = lit_c | ((fits & f_lit) if pcss else f_lit)
+        blk_fine = (fits & f_blk) if pcss else f_blk
     else:
         blk_fine = None
 
@@ -401,7 +414,7 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
 def classified_shadow_factor(shadow_maps, shadow_coarse, gbuf, scene_data,
                              shadow_mode: int, enable_shadows: bool,
                              n_dot_l, cap: int, quad_lit: bool = True,
-                             shadow_fine=None):
+                             shadow_fine=None, traced_windows: bool = False):
     """Penumbra-classified shadow factor (shade.py:474-559), exact:
     1. classify every active pixel (covered, sun-facing, shadows on):
        proven lit -> 0, proven blocked -> 1 (_classify_shadow);
@@ -410,7 +423,8 @@ def classified_shadow_factor(shadow_maps, shadow_coarse, gbuf, scene_data,
     Beyond ``cap`` uncertain pixels the dense filter runs instead (slower,
     never wrong).  Returns (factor, overflow): the overflow counts the
     uncertain pixels beyond ``cap`` — a cap-sizing signal (the frame's
-    ``fallback_px``), not a deviation.
+    ``fallback_px``), not a deviation.  ``traced_windows`` picks the JAX
+    frame's classifier windows (see _classify_shadow).
 
     The active-pixel restriction is exact for the image: the factor only
     scales Lo * n_dot_l (mesh_pbr.frag:225), zero where n_dot_l == 0, and
@@ -424,7 +438,7 @@ def classified_shadow_factor(shadow_maps, shadow_coarse, gbuf, scene_data,
     lit_c, blk_c = _classify_shadow(
         shadow_coarse, su, sv, sz, layer, shadow_maps.shape[-1],
         shadow_mode, shadow_rows=shadow_maps if quad_lit else None,
-        shadow_fine=shadow_fine)
+        shadow_fine=shadow_fine, traced_windows=traced_windows)
     uncertain = active & ~lit_c & ~blk_c
     base = (active & blk_c).to(torch.float32)
     sel = torch.nonzero(uncertain.reshape(-1)).squeeze(1)
@@ -472,7 +486,7 @@ def _sparse_shadow_factor(shadow_maps, gbuf, scene_data, shadow_mode: int,
 
 def _shadow_term(gbuf, scene_data, shadow_maps, shadow_mode: int,
                  enable_shadows: bool, n_dot_l, cap, shadow_coarse,
-                 quad_lit: bool):
+                 quad_lit: bool, traced_windows: bool):
     """The shaders' shadow factor and overflow (shade.py:750-767): dense
     without a cap (overflow None); with a cap, classified when classifier
     tables are given (``shadow_coarse``: a coarse table or a (coarse,
@@ -487,7 +501,7 @@ def _shadow_term(gbuf, scene_data, shadow_maps, shadow_mode: int,
         return classified_shadow_factor(
             shadow_maps, coarse, gbuf, scene_data, shadow_mode,
             enable_shadows, n_dot_l, cap, quad_lit=quad_lit,
-            shadow_fine=fine)
+            shadow_fine=fine, traced_windows=traced_windows)
     return _sparse_shadow_factor(shadow_maps, gbuf, scene_data, shadow_mode,
                                  enable_shadows, n_dot_l, cap)
 
@@ -522,11 +536,13 @@ def _normalize3(x, y, z):
 def shade_pbr(gbuf: dict, scene, scene_data: dict, shadow_maps,
               shadow_mode: int, enable_shadows: bool,
               shadow_sparse_cap: int | None = None, shadow_coarse=None,
-              mr_nearest_mip: bool = False, shadow_quad_lit: bool = True):
+              mr_nearest_mip: bool = False, shadow_quad_lit: bool = True,
+              shadow_traced_windows: bool = False):
     """mesh_pbr.frag main (185-226) over the planar G-buffer.
     Returns ((r, g, b), albedo_alpha), all planar — plus the shadow
     overflow when ``shadow_sparse_cap`` is set (see _shadow_term; with
-    ``shadow_coarse`` the classified path runs).  ``mr_nearest_mip``
+    ``shadow_coarse`` the classified path runs, with the JAX frame's
+    windows under ``shadow_traced_windows``).  ``mr_nearest_mip``
     samples the metallic-roughness texture at the nearest mip (the gated
     fidelity knob, FrameConfig.mr_nearest_mip)."""
     nx, ny, nz = _normalize3(gbuf["nx"], gbuf["ny"], gbuf["nz"])
@@ -602,7 +618,8 @@ def shade_pbr(gbuf: dict, scene, scene_data: dict, shadow_maps,
     amb = scene_data["ambient_color"]
     shadow, sp_ovf = _shadow_term(gbuf, scene_data, shadow_maps, shadow_mode,
                                   enable_shadows, n_dot_l, shadow_sparse_cap,
-                                  shadow_coarse, shadow_quad_lit)
+                                  shadow_coarse, shadow_quad_lit,
+                                  shadow_traced_windows)
     lit = 1.0 - shadow
     out_r = amb[0] * alb_r + lo_r * lit
     out_g = amb[1] * alb_g + lo_g * lit
@@ -615,7 +632,8 @@ def shade_pbr(gbuf: dict, scene, scene_data: dict, shadow_maps,
 def shade_flat(gbuf: dict, scene, scene_data: dict, shadow_maps,
                shadow_mode: int, enable_shadows: bool,
                shadow_sparse_cap: int | None = None, shadow_coarse=None,
-               mr_nearest_mip: bool = False, shadow_quad_lit: bool = True):
+               mr_nearest_mip: bool = False, shadow_quad_lit: bool = True,
+               shadow_traced_windows: bool = False):
     """mesh.frag main (124-182): Lambert + ambient with the same shadow
     library and alpha handling (shade.py:777-840).  Returns ((r, g, b),
     albedo_alpha), all planar, plus the shadow overflow when
@@ -643,7 +661,8 @@ def shade_flat(gbuf: dict, scene, scene_data: dict, shadow_maps,
 
     shadow, sp_ovf = _shadow_term(gbuf, scene_data, shadow_maps, shadow_mode,
                                   enable_shadows, n_dot_l, shadow_sparse_cap,
-                                  shadow_coarse, shadow_quad_lit)
+                                  shadow_coarse, shadow_quad_lit,
+                                  shadow_traced_windows)
     lit = 1.0 - shadow
     rad = scene_data["sunlight_color"]
     amb = scene_data["ambient_color"]

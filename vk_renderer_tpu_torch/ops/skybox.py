@@ -19,11 +19,14 @@ from .interp import pixel_centers
 
 
 def skybox_colors_at(cubemap: torch.Tensor, view: torch.Tensor,
-                     proj: torch.Tensor, px, py, width: int, height: int):
+                     proj: torch.Tensor, px, py, width: int, height: int,
+                     y_offset=0.0):
     """(r, g, b) cubemap colors at explicit pixel centers ``px``/``py``
-    (any shape) of a ``width`` x ``height`` frame."""
+    (any shape) of a ``width`` x ``height`` frame; ``y_offset`` places
+    the pixels of a horizontal strip whose row 0 is frame row
+    ``y_offset`` (the sharded path)."""
     ndc_x = px * (2.0 / width) - 1.0
-    ndc_y = py * (2.0 / height) - 1.0
+    ndc_y = (py + y_offset) * (2.0 / height) - 1.0
     # view-space ray: clip.x = P00*xv, clip.y = P11*yv, w = -zv
     rx = ndc_x / proj[0, 0]
     ry = ndc_y / proj[1, 1]
@@ -36,18 +39,25 @@ def skybox_colors_at(cubemap: torch.Tensor, view: torch.Tensor,
 
 
 def skybox_colors(cubemap: torch.Tensor, view: torch.Tensor,
-                  proj: torch.Tensor, height: int, width: int):
-    """(r, g, b) planar [H, W] cubemap colors for every pixel."""
+                  proj: torch.Tensor, height: int, width: int,
+                  y_offset=0.0, full_height: int | None = None):
+    """(r, g, b) planar [H, W] cubemap colors for every pixel of a
+    ``height``-row strip at row ``y_offset`` of a ``full_height`` frame
+    (the whole frame by default)."""
+    full_height = height if full_height is None else full_height
     px, py = pixel_centers(height, width, cubemap.device)
-    return skybox_colors_at(cubemap, view, proj, px, py, width, height)
+    return skybox_colors_at(cubemap, view, proj, px, py, width, full_height,
+                            y_offset)
 
 
 def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
                      view: torch.Tensor, proj: torch.Tensor,
-                     sparse_cap: int | None = None):
+                     sparse_cap: int | None = None, y_offset=0.0,
+                     full_height: int | None = None):
     """Overwrite pixels still at clear depth (>= 1.0) with the skybox
-    (depth LESS_OR_EQUAL at z=1, write off).  color: (r, g, b) planar.
-    Returns (color, overflow).
+    (depth LESS_OR_EQUAL at z=1, write off).  color: (r, g, b) planar;
+    ``y_offset`` / ``full_height`` locate a horizontal strip within the
+    full frame (the sharded path).  Returns (color, overflow).
 
     Only the sky pixels are sampled and written, whatever the cap (the
     JAX package's tier ladder of compacted lists, skybox.py:96-114, is
@@ -56,6 +66,7 @@ def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
     the JAX function does — a cap-sizing signal (the frame's
     ``fallback_px``); the image never depends on it."""
     h, w = depth.shape
+    full_height = h if full_height is None else full_height
     mask = depth >= 1.0
     sel = torch.nonzero(mask.reshape(-1)).squeeze(1)
     n_sky = sel.numel()
@@ -66,7 +77,8 @@ def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
         return tuple(color), overflow
     px = (sel % w).to(torch.float32) + 0.5
     py = (sel // w).to(torch.float32) + 0.5
-    sky = skybox_colors_at(cubemap, view, proj, px, py, w, h)
+    sky = skybox_colors_at(cubemap, view, proj, px, py, w, full_height,
+                           y_offset)
     out = []
     for c, s in zip(color, sky):
         c = c.reshape(-1).clone()

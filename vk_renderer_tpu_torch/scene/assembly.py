@@ -98,8 +98,10 @@ def flatten_nodes(root: Node) -> list[RenderObject]:
 class SceneBuilder:
     """Accumulates meshes/materials/textures; ``build()`` emits SceneArrays."""
 
-    def __init__(self):
-        self.heap, self.default_ids = make_default_heap()
+    def __init__(self, native_textures: bool = False):
+        # native_textures: build the texture heap through the native
+        # bridge (textures.TextureHeapBuilder.add)
+        self.heap, self.default_ids = make_default_heap(native_textures)
         self.checkerboard_id: int | None = None
         self.materials: list[Material] = []
         self.root = Node()

@@ -20,13 +20,15 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
 
-def build_library(source: str, command: list[str]) -> Path:
-    """Compile ``csrc/<source>`` with ``command + ["-o", out, src]``
-    unless a library of the same source and command already exists.
-    Returns the library's path; raises RuntimeError with the compiler's
-    output if the build fails, and keeps that output in ``<lib>.log``
+def build_library(source: str, command: list[str],
+                  src_dir: Path = CSRC_DIR) -> Path:
+    """Compile ``<src_dir>/<source>`` (``csrc/`` by default) with
+    ``command + ["-o", out, src]`` unless a library of the same source
+    and command already exists.  Returns the library's path; raises
+    RuntimeError with the compiler's output if the build fails (OSError
+    if the compiler is missing), and keeps that output in ``<lib>.log``
     when it succeeds."""
-    src = CSRC_DIR / source
+    src = Path(src_dir) / source
     tag = hashlib.sha256(src.read_bytes() + "\0".join(command).encode()
                          ).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{tag}.so"
@@ -46,5 +48,6 @@ def build_library(source: str, command: list[str]) -> Path:
     return out
 
 
-def load_library(source: str, command: list[str]) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build_library(source, command)))
+def load_library(source: str, command: list[str],
+                 src_dir: Path = CSRC_DIR) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build_library(source, command, src_dir)))
