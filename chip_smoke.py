@@ -76,11 +76,27 @@ Phases, each printed as one JSON object on its own line:
      0 must cover pixels, every overflow counter must be 0; then the
      k-buffer kernel against its plain version on that pass's K=3 call,
  13. headless: the CLI's main() on sponza_like at 1080p (3 frames) and on
-     the flat-shaded cube; each must return 0 with overflow counters 0.
-Phases 4, 7, 8, 9 (each n), 12 and 13 each set every kernel's launch
+     the flat-shaded cube; each must return 0 with overflow counters 0,
+ 14. viewer: app/viewer.py's window-free core (ViewerSession) on the
+     replica at the viewer's default window, 1280x720, from the bench
+     camera, driven with the real clock by a script that presses every
+     key binding, moves the six trackbars, drags the mouse, holds w/a/d,
+     steps the render-scale ladder down to 640x360 and back, and quits on
+     q (VIEWER_SCRIPT, 34 frames): each frame's window-size image equal
+     bit for bit to a fresh driver.render of copies of its camera,
+     settings and config through the same upscale, the frame sizes
+     following the ladder (1280x720, 960x540, 640x360), no CUDA library
+     built or loaded after the first frame (utils.build wrapped),
+     overflow counters 0 on every frame, and every kernel launch of one
+     frame at each ladder size against its plain version (raster bit for
+     bit, post within 2 ulp; the 540- and 360-row frames have a padded
+     last tile row); printed: per-step synchronised ms, the HUD lines,
+     launches per frame, the mean frame ms at each size, and the last
+     frame's state rendered at every size (3 frames after a warm-up).
+Phases 4, 7, 8, 9 (each n), 12, 13 and 14 each set every kernel's launch
 count to 0 just before they run and read the counts just after; a kernel
 of that path that never launched fails the run.  The kernels line's
-launches are phase 4's plus phase 9's.  Then one {"kernels": [...]} line, the
+launches are phase 4's plus phase 9's plus phase 14's.  Then one {"kernels": [...]} line, the
 card line as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no CUDA device or the package
 is missing, and non-zero after any failed phase.
@@ -126,6 +142,27 @@ PEAK_F32_S = 67e12
 RASTER_OPS = 4 * 4 + 2
 # per tonemap element: add, divide, log, multiply, exp
 TONEMAP_OPS = 5
+# phase 14: the viewer's default window on the replica, its three ladder
+# sizes, and one poll per frame as its window loop polls: (key or None,
+# [actions fired during the poll]); ("slider", i, v) moves the i-th
+# trackbar (ViewerSession.trackbars() order), ("mouse", event, x, y)
+VIEWER_W, VIEWER_H = 1280, 720
+VIEWER_LADDER = ((640, 360), (960, 540), (1280, 720))
+VIEWER_RUNG_FRAMES = 3
+VIEWER_SCRIPT = (
+    [("h", [("slider", 0, 200), ("slider", 1, 30)]),
+     ("1", [("slider", 2, 180), ("slider", 3, 40)]),
+     ("2", [("slider", 4, 220), ("slider", 5, 50)])]
+    + [(k, []) for k in "34bpjlik-=[]"]
+    + [("w", []), ("a", []), ("w", []), ("d", []),
+       (None, [("mouse", "down", 600, 300), ("mouse", "move", 640, 310)]),
+       (None, [("mouse", "move", 680, 305), ("mouse", "up", 680, 305)]),
+       ("s", []),
+       (",", []), (None, []), (None, []),
+       (",", []), (None, []), (None, []),
+       (".", []), (None, []),
+       (".", []), (None, []), (None, []),
+       ("q", [])])
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "raster_depth": (RASTER_SRC, "vk_renderer_tpu/ops/raster_pallas.py:50"),
     "raster_layers": (RASTER_SRC,
@@ -653,12 +690,26 @@ def flip_kinds(host, scene, viewproj, ref_g, strip_g, masked: range,
     return out
 
 
-def strip_kernel_checks(recs: dict) -> dict:
-    """Every launch recorded on one strip frame run again on its recorded
-    inputs beside its plain version: raster kernels bit for bit (depth
-    as int32 bits, ids), post kernels within POST_ULP.  Per kernel: the
-    calls, the input shapes, the calls that disagree, max |difference|
-    and (post kernels) max ulp."""
+def kernel_recorders(stack: contextlib.ExitStack) -> dict:
+    """A Recorder on each kernel's wrapper where the frame calls it, by
+    KERNELS name, entered on ``stack``."""
+    from vk_renderer_tpu_torch.graph import frame
+    from vk_renderer_tpu_torch.ops import post
+    from vk_renderer_tpu_torch.ops import raster_kernels as rk
+    return {name: stack.enter_context(Recorder(owner, attr))
+            for name, (owner, attr) in (
+                ("raster_depth", (rk, "rasterize_depth_grid")),
+                ("raster_layers", (rk, "rasterize_layers_grid")),
+                ("tonemap", (frame.POSTPROCESS_REGISTRY, "tonemap")),
+                ("gradient", (post, "gradient")))}
+
+
+def launch_checks(recs: dict) -> dict:
+    """Every launch recorded on one frame (kernel_recorders) run again on
+    its recorded inputs beside its plain version: raster kernels bit for
+    bit (depth as int32 bits, ids), post kernels within POST_ULP.  Per
+    kernel: the calls, the input shapes, the calls that disagree, max
+    |difference| and (post kernels) max ulp."""
     import torch
     from vk_renderer_tpu_torch.ops import post
     from vk_renderer_tpu_torch.ops import raster_kernels as rk
@@ -734,6 +785,102 @@ def bench_config():
     cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
     cam.yaw = np.pi / 2
     return settings, cfg, cam
+
+
+def viewer_sizes() -> list:
+    """The render size of each frame of VIEWER_SCRIPT: the ladder's top
+    rung first, one rung down per ',' and up per '.', clamped."""
+    rung, out = len(VIEWER_LADDER) - 1, []
+    for key, _ in VIEWER_SCRIPT:
+        out.append(VIEWER_LADDER[rung])
+        if key == ",":
+            rung = max(0, rung - 1)
+        elif key == ".":
+            rung = min(len(VIEWER_LADDER) - 1, rung + 1)
+    return out
+
+
+def drive_viewer(scene, wrappers: dict) -> dict:
+    """Phase 14: app.viewer's window-free core (ViewerSession) on the
+    replica at VIEWER_W x VIEWER_H from the bench camera, driven by
+    VIEWER_SCRIPT with the real clock, as its window loop drives it
+    (frame, then the poll's slider and mouse actions, then the key).
+    Every kernel's launch count is set to 0 before the session and read
+    after it; the frame after the first at each size runs under
+    kernel_recorders.  utils.build's build_library and load_library are
+    wrapped for the whole drive.  After the drive, each frame's image is
+    held against a fresh driver.render of copies of its camera, settings
+    and config through the same upscale.  Returns the per-step record
+    (size, synchronised ms, HUD, stats, launches, library builds and
+    loads so far), the launch counts, the recorders by size, the frames
+    whose image differs, whether q ended the loop, and the mean frame ms
+    of the last frame's state at every rung."""
+    import copy
+    import torch
+    from vk_renderer_tpu_torch.app import viewer
+    from vk_renderer_tpu_torch.graph import driver
+    from vk_renderer_tpu_torch.utils import build
+    for fn in wrappers.values():
+        fn.launches = 0
+    session = viewer.ViewerSession(scene, VIEWER_W, VIEWER_H,
+                                   time.perf_counter(),
+                                   camera=bench_config()[2])
+    sliders = session.trackbars()
+    steps, snaps, recorded, going = [], [], {}, []
+    with Recorder(build, "build_library") as rec_b, \
+            Recorder(build, "load_library") as rec_l:
+        for key, actions in VIEWER_SCRIPT:
+            now = time.perf_counter()
+            size = (session.cfg.width, session.cfg.height)
+            record = (size not in recorded and bool(steps)
+                      and steps[-1]["size"] == size)
+            before = {n: fn.launches for n, fn in wrappers.items()}
+            with contextlib.ExitStack() as stack:
+                if record:
+                    recorded[size] = kernel_recorders(stack)
+                t0 = time.perf_counter()
+                img, hud, stats = session.frame(now)
+                torch.cuda.synchronize()
+                ms = 1000.0 * (time.perf_counter() - t0)
+            steps.append({"size": size, "ms": ms, "hud": hud,
+                          "stats": stats, "shape": list(img.shape),
+                          "builds": len(rec_b.calls) + len(rec_l.calls),
+                          "launches": {n: fn.launches - before[n]
+                                       for n, fn in wrappers.items()}})
+            snaps.append((copy.deepcopy(session.cam),
+                          copy.deepcopy(session.settings), session.cfg, img))
+            for act in actions:
+                if act[0] == "slider":
+                    sliders[act[1]][2](act[2])
+                else:
+                    session.mouse(*act[1:])
+            going.append(session.key(
+                viewer.NO_KEY if key is None else ord(key), now))
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    differ = []
+    for i, (cam, settings, cfg, img) in enumerate(snaps):
+        out = driver.render(scene, cam, settings, cfg)
+        fresh = viewer.upscale_nearest(out["color_u8"], VIEWER_H, VIEWER_W)
+        if not torch.equal(fresh, img):
+            differ.append(i)
+    # the last frame's state at every rung: one warm-up, then the mean of
+    # VIEWER_RUNG_FRAMES synchronised frames (the drive's own frames move
+    # the camera between sizes)
+    cam, settings = snaps[-1][:2]
+    same_state = {}
+    for i in range(len(VIEWER_LADDER)):
+        cfg = session.cfg_at(i)
+        driver.render(scene, cam, settings, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VIEWER_RUNG_FRAMES):
+            out = driver.render(scene, cam, settings, cfg)
+        torch.cuda.synchronize()
+        same_state["%dx%d" % (cfg.width, cfg.height)] = (
+            1000.0 * (time.perf_counter() - t0) / VIEWER_RUNG_FRAMES)
+    return {"steps": steps, "launches": launches, "recorded": recorded,
+            "differ": differ, "same_state_ms": same_state,
+            "quit_on_q": going == [True] * (len(going) - 1) + [False]}
 
 
 def world_rank(rank: int, tmp: str) -> None:
@@ -1161,13 +1308,7 @@ def main() -> int:
             # view over the joined maps, every kernel launch recorded
             shadow_ms, view_ms, strips = [], [], []
             with contextlib.ExitStack() as stack:
-                recs = {name: stack.enter_context(Recorder(owner, attr))
-                        for name, (owner, attr) in (
-                            ("raster_depth", (rk, "rasterize_depth_grid")),
-                            ("raster_layers", (rk, "rasterize_layers_grid")),
-                            ("tonemap", (frame.POSTPROCESS_REGISTRY,
-                                         "tonemap")),
-                            ("gradient", (post, "gradient")))}
+                recs = kernel_recorders(stack)
                 rec_g = stack.enter_context(Recorder(frame, "_build_gbuffer"))
                 for i in range(n):
                     torch.cuda.synchronize()
@@ -1209,7 +1350,7 @@ def main() -> int:
                                        WIDTH * HEIGHT))
             gate_launches(f"{n} strips", s_launches, KERNELS)
             # the kernels at the strips' shapes against their plain versions
-            kc = strip_kernel_checks(recs)
+            kc = launch_checks(recs)
             del recs, strip_g, tid
             emit({"phase": "sharded_kernels", "strips": n, **kc})
             for name, row in kc.items():
@@ -1438,6 +1579,74 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"headless {tag} raised")
 
+    # ---- 14. the viewer's core on the replica at 1280x720
+    viewer_launches = {name: 0 for name in KERNELS}
+    viewer_errs = {name: 0.0 for name in KERNELS}
+    try:
+        t0 = time.perf_counter()
+        v = drive_viewer(scene, wrappers)
+        seconds = time.perf_counter() - t0
+        steps = v["steps"]
+        viewer_launches = v["launches"]
+        by_size = {}
+        for prev, st in zip(steps, steps[1:]):
+            if st["size"] == prev["size"]:   # not the first at its size
+                by_size.setdefault("%dx%d" % st["size"], []).append(st["ms"])
+        emit({"phase": "viewer", "scene": "sponza_replica",
+              "window": [VIEWER_W, VIEWER_H], "frames": len(steps),
+              "seconds": seconds,
+              "sizes": ["%dx%d" % st["size"] for st in steps],
+              "step_ms": [st["ms"] for st in steps],
+              "hud": [st["hud"] for st in steps],
+              "frame_ms_by_size": {k: sum(ms) / len(ms)
+                                   for k, ms in by_size.items()},
+              "frame_ms_same_state": v["same_state_ms"],
+              "launches": viewer_launches,
+              "launches_per_frame": {name: sorted({st["launches"][name]
+                                                   for st in steps})
+                                     for name in KERNELS},
+              "library_builds_first_frame": steps[0]["builds"],
+              "library_builds_after_first_frame":
+                  steps[-1]["builds"] - steps[0]["builds"],
+              "frames_differing_from_fresh_render": v["differ"],
+              "quit_on_q": v["quit_on_q"],
+              "stats_first": steps[0]["stats"],
+              "stats_last": steps[-1]["stats"]})
+        want = viewer_sizes()
+        if [st["size"] for st in steps] != want:
+            failures.append(f"viewer sizes {[st['size'] for st in steps]} "
+                            f"do not follow the ladder {want}")
+        if any(st["shape"] != [VIEWER_H, VIEWER_W, 3] for st in steps):
+            failures.append("a viewer frame is not at window size")
+        if v["differ"]:
+            failures.append(f"viewer frames {v['differ']} differ from a "
+                            f"fresh render of their state")
+        if steps[-1]["builds"] != steps[0]["builds"]:
+            failures.append("a CUDA library was built or loaded after the "
+                            "viewer's first frame")
+        if not v["quit_on_q"]:
+            failures.append("the viewer's loop did not end on q alone")
+        for i, st in enumerate(steps):
+            gate_stats(f"viewer frame {i}", st["stats"])
+        gate_launches("viewer", viewer_launches, KERNELS)
+        if sorted(v["recorded"]) != sorted(VIEWER_LADDER):
+            failures.append(f"viewer launches recorded at "
+                            f"{sorted(v['recorded'])}, not every rung")
+        for size, recs in sorted(v["recorded"].items()):
+            kc = launch_checks(recs)
+            emit({"phase": "viewer_kernels", "size": "%dx%d" % size, **kc})
+            for name, row in kc.items():
+                viewer_errs[name] = max(viewer_errs[name], row["max_abs_err"])
+                if row["calls"] == 0 or row["disagree"]:
+                    failures.append(f"viewer {size}: {name} disagrees with "
+                                    f"its plain version on "
+                                    f"{row['disagree']} of {row['calls']} "
+                                    f"launches")
+        del v, steps
+    except Exception:
+        traceback.print_exc()
+        failures.append("viewer phase raised")
+
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
@@ -1448,9 +1657,10 @@ def main() -> int:
         source, replaces = KERNELS[name]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": launches[name] + sharded_launches[name],
+                "launches": (launches[name] + sharded_launches[name]
+                             + viewer_launches[name]),
                 "max_abs_err": max([c["max_abs_err"] for c in cs]
-                                   + [strip_errs[name]]),
+                                   + [strip_errs[name], viewer_errs[name]]),
                 "max_ulp": max((c["max_ulp"] for c in cs
                                 if c["max_ulp"] is not None), default=None),
                 "ms": cs[0]["ms"], "ms_eager": cs[0]["ms_eager"],

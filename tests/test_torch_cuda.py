@@ -378,3 +378,143 @@ def test_classified_shadow_on_the_card(dev, mode):
     assert torch.equal(got.view(torch.int32),
                        torch.where(active, dense, 0.0).view(torch.int32))
 
+
+
+@pytest.mark.cuda
+def test_viewer_core_on_the_card(dev, monkeypatch):
+    """The port's viewer (app/viewer.py) on the card against itself on
+    the CPU, both driven through main by one key script and one
+    fixed-step clock (tests/viewer_script.py, the script the CPU test
+    holds the CPU viewer to the JAX viewer with): equal HUD strings,
+    every frame >= 40 dB with equal stats (phase 11's bound of
+    chip_smoke.py for the card's frame against the CPU path), the same
+    camera and render sizes; the card's upscale of one image equals the
+    CPU's bit for bit."""
+    from viewer_script import ARGV, SCRIPT, run_viewer
+    from vk_renderer_tpu_torch.app import viewer
+    from vk_renderer_tpu_torch.graph import driver
+    from vk_renderer_tpu_torch.utils.image import psnr
+    cgui, cframes = run_viewer(monkeypatch, viewer, driver,
+                               ARGV + ["--device", "cpu"])
+    ggui, gframes = run_viewer(monkeypatch, viewer, driver,
+                               ARGV + ["--device", "cuda"])
+    assert len(ggui.shown) == len(cgui.shown) == len(SCRIPT)
+    assert ggui.texts == cgui.texts
+    for i, (cf, gf, ci, gi) in enumerate(zip(cframes, gframes, cgui.shown,
+                                             ggui.shown)):
+        p = psnr(gi.astype(np.float32) / 255.0, ci.astype(np.float32) / 255.0)
+        assert p >= 40.0, (i, p)
+        assert gf["stats"] == cf["stats"] and gf["size"] == cf["size"], i
+        assert np.array_equal(gf["position"], cf["position"])
+    src = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (540, 960, 3), dtype=np.uint8))
+    got = viewer.upscale_nearest(src.to(dev), 720, 1280)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), viewer.upscale_nearest(src, 720, 1280))
+
+
+ACROSS_FRAMES = 3
+
+
+def _across_case(case: str, dev):
+    """(scene, settings, config, camera) of one across-cards case on
+    ``dev``: the cube with shadows at 256x128, or the bench frame (the
+    Sponza replica at 1920x1080, CSM, tonemap; chip_smoke.py's)."""
+    from vk_renderer_tpu_torch.graph import driver, frame
+    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+    from vk_renderer_tpu_torch.scene import ktx, procedural
+    from vk_renderer_tpu_torch.scene.assembly import SceneBuilder
+    from vk_renderer_tpu_torch.scene.camera import Camera
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    if case == "cube":
+        settings = RenderSettings(enable_shadows=True, shadow_mode=0)
+        cfg = frame.FrameConfig(width=256, height=128, cap_opaque=128,
+                                cap_masked=64, cap_transparent=64,
+                                shadow_size=256, shadow_cap=256,
+                                enable_shadows=True)
+        return (scene_to_torch(procedural.build_cube_scene().build(), dev),
+                settings, cfg, Camera())
+    b = SceneBuilder()
+    b.load_gltf("assets/sponza_replica/Sponza.glb", "sponza")
+    b.cubemap = ktx.load_cubemap("assets/sponza_replica/pisa_cube.ktx")
+    settings = RenderSettings(enable_shadows=True, shadow_mode=3,
+                              enable_postprocess=True)
+    cfg = driver.config_from_settings(settings, 1920, 1080,
+                                      shadow_size=2048)
+    cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
+    cam.yaw = np.pi / 2
+    return scene_to_torch(b.build(), dev), settings, cfg, cam
+
+
+def _across_rank(rank: int, world: int, tmp: str, case: str) -> None:
+    """One rank of the across-cards world: card ``rank`` over nccl, one
+    strip each through
+    render_frame_sharded(group=...), one warm-up and ACROSS_FRAMES timed
+    frames.  Rank 0 then leaves the group, renders the same ``world``
+    strips in turn on its own device, and saves into ``tmp`` whether the
+    two frames are equal bit for bit and both frame times."""
+    import datetime
+    import os
+    import time
+    import torch.distributed as dist
+    from vk_renderer_tpu_torch.graph import driver, frame
+    from vk_renderer_tpu_torch.parallel import sharded
+    torch.cuda.set_device(rank)
+    scene, settings, cfg, cam = _across_case(case,
+                                             torch.device("cuda", rank))
+    sd, st = driver.frame_inputs(scene, cam, settings, cfg)
+
+    def timed(**kw):
+        out = sharded.render_frame_sharded(scene, sd, st, cfg, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ACROSS_FRAMES):
+            out = sharded.render_frame_sharded(scene, sd, st, cfg, **kw)
+        torch.cuda.synchronize()
+        return out, 1000.0 * (time.perf_counter() - t0) / ACROSS_FRAMES
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=300))
+    try:
+        got, world_ms = timed(group=dist.group.WORLD)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank != 0:
+        return
+    want, turn_ms = timed(n=world)
+    same = {k: bool(torch.equal(
+        got[k].view(torch.int32) if k in ("color", "depth") else got[k],
+        want[k].view(torch.int32) if k in ("color", "depth") else want[k]))
+        for k in ("color", "depth", "color_u8", "stats_vec")}
+    torch.save({"equal": same, "world_ms": world_ms, "in_turn_ms": turn_ms,
+                "gathered_on": got["color"].device.type,
+                "stats": frame.stats_from_vec(got["stats_vec"]),
+                "devices": [torch.cuda.get_device_name(i)
+                            for i in range(world)]},
+               os.path.join(tmp, "rank0.pt"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cube", "bench"])
+def test_strips_across_cards(dev, case, tmp_path):
+    """The frame as one strip per card (4 cards, or 2 where fewer are
+    lent): a world of processes over nccl, one card per rank, through
+    render_frame_sharded(group=...).  Its assembled frame equals the same
+    strips rendered in turn on one card bit for bit (colour and depth as
+    int32 bits, u8, stats); prints both frame times."""
+    import json
+    import torch.multiprocessing as mp
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two or more CUDA devices ({count} here)")
+    world = 4 if count >= 4 else 2
+    mp.spawn(_across_rank, args=(world, str(tmp_path), case),
+             nprocs=world, join=True)
+    got = torch.load(tmp_path / "rank0.pt")
+    print(json.dumps({"test": "strips_across_cards", "case": case,
+                      "ranks": world, **got}))
+    assert got["gathered_on"] == "cuda"
+    assert all(got["equal"].values()), got["equal"]
+    assert got["stats"]["bin_overflow"] == 0

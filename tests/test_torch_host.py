@@ -237,3 +237,18 @@ def test_port_imports_no_jax():
                          text=True, env=env, cwd=ROOT, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "False"
+
+
+def test_viewer_imports_neither_jax_nor_cv2():
+    """Importing the port's viewer loads no JAX and no OpenCV: only its
+    window shell (main) imports cv2, so the window-free core runs where
+    there is no OpenCV, as on the GPU machine."""
+    code = ("import sys, vk_renderer_tpu_torch.app.viewer; "
+            "print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'jax', 'cv2', 'vk_renderer_tpu'}))")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.abspath(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
