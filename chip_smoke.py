@@ -18,7 +18,7 @@ Phases, each printed as one JSON object on its own line:
      run; bin/peel/sparse overflow must be 0,
   5. kernels: each CUDA kernel on the bench frame's own inputs (camera
      opaque records at 1080p and all four 2048^2 cascades for the depth
-     raster, masked rounds 0 and 1 for the k-buffer, the frame's HDR
+     raster, masked rounds 0, 1 and 2 for the k-buffer, the frame's HDR
      colour for the tonemap, the frame's background colours at 1920x1080
      for the gradient) and both raster kernels on a heavy synthetic
      stream (one 128x32 tile of 3,100 records, tests/raster_streams.py)
@@ -65,8 +65,9 @@ Phases, each printed as one JSON object on its own line:
      render_frame_sharded(group=...), whose assembled frame, gathered on
      the card, must equal the n = 2 frame bit for bit,
  10. parity: 480x272 frames rendered with the kernels against the same
-     frames rendered with all four plain versions (PSNR >= 40 dB): the
-     bench frame, and a transparent + flat-shaded sponza_like frame,
+     frames rendered with all four plain versions (app.bench.plain_kernels,
+     PSNR >= 40 dB): the bench frame, and a transparent + flat-shaded
+     sponza_like frame,
  11. reference: the glTF test fixture (MASK material, CSM shadows, skybox)
      at 256x128 on the GPU against the port's CPU path, which the CPU
      tests hold against the JAX package's goldens (PSNR >= 40 dB, equal
@@ -92,12 +93,29 @@ Phases, each printed as one JSON object on its own line:
      bit, post within 2 ulp; the 540- and 360-row frames have a padded
      last tile row); printed: per-step synchronised ms, the HUD lines,
      launches per frame, the mean frame ms at each size, and the last
-     frame's state rendered at every size (3 frames after a warm-up).
-Phases 4, 7, 8, 9 (each n), 12, 13 and 14 each set every kernel's launch
-count to 0 just before they run and read the counts just after; a kernel
-of that path that never launched fails the run.  The kernels line's
-launches are phase 4's plus phase 9's plus phase 14's.  Then one {"kernels": [...]} line, the
-card line as nvidia-smi prints it, and last {"ok": true, "device": {...}}.  Exits
+     frame's state rendered at every size (3 frames after a warm-up),
+ 15. bench: app.bench.main(["--passes"]) in-process at its defaults (the
+     replica at 1920x1080, 30 timed frames, parity at 480x272, the
+     sponza_like continuity frames), its stdout and stderr captured and
+     printed on one phase line with the card's name and power limit:
+     exit 0, exactly one stdout line with bench.py's four keys and metric
+     sponza_replica_1080p_fps, the nine-key stats line with overflow
+     counters 0 and backend cuda, parity_pass true, a continuity line,
+     each kernel launched at least 30 times, the replica's three files
+     byte-equal before and after,
+ 16. entries: entry.entry()'s one render_frame step on the card (every
+     kernel launched, every launch recorded and held against its plain
+     version: raster bit for bit, post within POST_ULP) against
+     entry("cpu")'s frame (PSNR >= 40 dB, equal stats, bin_overflow
+     41,424 in both), then entry.dryrun_multichip(4): a 4-process gloo
+     world that renders on the CPU though a card is present, and its
+     seconds on the CPU (no card time).
+Phases 4, 7, 8, 9 (each n), 12, 13, 14, 15 and 16 each set every kernel's
+launch count to 0 just before they run and read the counts just after; a
+kernel of that path that never launched fails the run.  The kernels
+line's launches are the sum of phases 4, 9, 14, 15 and 16.  Then one
+{"kernels": [...]} line, the card line as nvidia-smi prints it, and last
+{"ok": true, "device": {...}}.  Exits
 non-zero, printing no result, when there is no CUDA device or the package
 is missing, and non-zero after any failed phase.
 """
@@ -128,6 +146,16 @@ SHARDED_FRAMES = 3
 WORLD_FRAMES = 3
 STRIP_ROW0 = 270          # the gradient's strip check: rows 270-539
 KERNEL_REPS = 10
+MASKED_ROUNDS = 3         # the bench frame's k-buffer calls (phase 5)
+BENCH_FRAMES = 30         # app/bench.py's timed frames (phase 15)
+REPLICA_FILES = ("assets/sponza_replica/Sponza.glb",
+                 "assets/sponza_replica/pisa_cube.ktx",
+                 "assets/sponza_replica/.v5_t512_a256_s2.8")
+BENCH_LINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+BENCH_STATS_KEYS = ["frametime_ms", "triangles", "drawcalls", "bin_overflow",
+                    "peel_overflow", "sparse_overflow", "fallback_px",
+                    "backend", "scene_triangles"]
+DRYRUN_WORKERS = 4
 POST_ULP = 2
 HEAVY_RECORDS = 3100
 RASTER_SRC = "vk_renderer_tpu_torch/csrc/raster.cu"
@@ -772,19 +800,25 @@ def strip_gate(name: str, chk: dict, stats: dict, n_px: int) -> list:
     return bad
 
 
+def replica_digests() -> list:
+    """SHA-256 of each of REPLICA_FILES."""
+    import hashlib
+    out = []
+    for path in REPLICA_FILES:
+        with open(path, "rb") as f:
+            out.append(hashlib.sha256(f.read()).hexdigest())
+    return out
+
+
 def bench_config():
-    """The bench frame's settings, config and camera (phase 4's)."""
-    import numpy as np
+    """The bench frame's settings, config and camera (phase 4's): those
+    of app/bench.py at its default size."""
+    from vk_renderer_tpu_torch.app import bench
     from vk_renderer_tpu_torch.graph import driver
-    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
-    from vk_renderer_tpu_torch.scene.camera import Camera
-    settings = RenderSettings(enable_shadows=True, shadow_mode=3,
-                              enable_postprocess=True)
+    settings = bench.bench_settings()
     cfg = driver.config_from_settings(settings, WIDTH, HEIGHT,
                                       shadow_size=SHADOW_SIZE)
-    cam = Camera(position=np.array([9.0, 1.8, 0.3], np.float32))
-    cam.yaw = np.pi / 2
-    return settings, cfg, cam
+    return settings, cfg, bench.bench_camera()
 
 
 def viewer_sizes() -> list:
@@ -947,8 +981,9 @@ def main() -> int:
                     "and has no CPU fallback")
     try:
         import numpy as np
+        from vk_renderer_tpu_torch import entry as port_entry
         from vk_renderer_tpu_torch import native_bridge
-        from vk_renderer_tpu_torch.app import headless
+        from vk_renderer_tpu_torch.app import bench, headless
         from vk_renderer_tpu_torch.graph import driver, frame, profiler
         from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
         from vk_renderer_tpu_torch.ops import post, shade
@@ -1107,7 +1142,7 @@ def main() -> int:
                 "raster_depth", f"shadow_cascade{c}_{SHADOW_SIZE}",
                 rk.rasterize_depth_grid, rk.rasterize_depth_grid_plain,
                 *call, outputs_per_px=8))
-        for r, call in enumerate(rec_k.calls[:2]):
+        for r, call in enumerate(rec_k.calls[:MASKED_ROUNDS]):
             k_r = call[0][6]
             floor_tag = "_floor" if call[0][4] is not None else ""
             checks["raster_layers"].append(compare_raster(
@@ -1166,7 +1201,8 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("kernel check raised")
-    expected = {"raster_depth": 1 + len(sh_calls) + 1, "raster_layers": 3}
+    expected = {"raster_depth": 1 + len(sh_calls) + 1,
+                "raster_layers": MASKED_ROUNDS + 1}
     for name in ("raster_depth", "raster_layers"):
         cs = checks[name]
         if len(cs) != expected[name] or not all(c["bit_exact"] for c in cs):
@@ -1430,17 +1466,8 @@ def main() -> int:
         try:
             t0 = time.perf_counter()
             fast = driver.render(p_scene, p_cam, p_set, pcfg)
-            real = (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-                    frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient)
-            rk.rasterize_depth_grid = rk.rasterize_depth_grid_plain
-            rk.rasterize_layers_grid = rk.rasterize_layers_grid_plain
-            frame.POSTPROCESS_REGISTRY["tonemap"] = post.tonemap_plain
-            post.gradient = post.gradient_plain
-            try:
+            with bench.plain_kernels():
                 ref = driver.render(p_scene, p_cam, p_set, pcfg)
-            finally:
-                (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-                 frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient) = real
             p = psnr(fast["color_u8"].cpu().numpy().astype(np.float32)
                      / 255.0,
                      ref["color_u8"].cpu().numpy().astype(np.float32) / 255.0)
@@ -1647,6 +1674,115 @@ def main() -> int:
         traceback.print_exc()
         failures.append("viewer phase raised")
 
+    # ---- 15. the benchmark driver, in-process, at its defaults
+    bench_launches = {name: 0 for name in KERNELS}
+    try:
+        before = replica_digests()
+        reset_counts()
+        out_buf, err_buf = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out_buf), \
+                contextlib.redirect_stderr(err_buf):
+            rc = bench.main(["--passes"])
+        seconds = time.perf_counter() - t0
+        bench_launches = read_counts()
+        stdout = out_buf.getvalue().splitlines()
+        err_lines = err_buf.getvalue().splitlines()
+        jl = [json.loads(ln) for ln in err_lines if ln.startswith("{")]
+        line = json.loads(stdout[0]) if len(stdout) == 1 else None
+        parity = [ln for ln in jl if "parity_psnr_db" in ln]
+        bstats = [ln for ln in jl if "frametime_ms" in ln]
+        contin = [ln for ln in jl if "continuity_scene" in ln]
+        unchanged = replica_digests() == before
+        emit({"phase": "bench", "argv": ["--passes"], "rc": rc,
+              "seconds": seconds, "card": card_line, "stdout": stdout,
+              "stdout_line": line,
+              "note": [ln for ln in err_lines if ln.startswith("NOTE")],
+              "passes_table": [ln for ln in err_lines
+                               if not ln.startswith(("{", "NOTE"))],
+              "parity": parity, "stats": bstats, "continuity": contin,
+              "launches": bench_launches,
+              "replica_files_unchanged": unchanged})
+        if rc != 0:
+            failures.append(f"bench returned {rc}")
+        if line is None or list(line) != BENCH_LINE_KEYS or \
+                line["metric"] != "sponza_replica_1080p_fps":
+            failures.append(f"bench stdout is not one contract line: "
+                            f"{stdout}")
+        if len(bstats) != 1 or list(bstats[0]) != BENCH_STATS_KEYS:
+            failures.append(f"bench stats line missing or malformed: "
+                            f"{bstats}")
+        else:
+            gate_stats("bench", bstats[0])
+            if bstats[0]["backend"] != "cuda":
+                failures.append(f"bench backend {bstats[0]['backend']}")
+        if len(parity) != 1 or parity[0]["parity_pass"] is not True:
+            failures.append(f"bench parity failed: {parity}")
+        if len(contin) != 1:
+            failures.append(f"bench continuity line missing: {contin}")
+        for name in KERNELS:
+            if bench_launches[name] < BENCH_FRAMES:
+                failures.append(f"{name} launched {bench_launches[name]} "
+                                f"times in the bench, fewer than its "
+                                f"{BENCH_FRAMES} timed frames")
+        if not unchanged:
+            failures.append("the bench changed the replica's files")
+    except Exception:
+        traceback.print_exc()
+        failures.append("bench phase raised")
+
+    # ---- 16. the driver entries: one entry() step on the card against
+    # the CPU's, then the dry run's world on the CPU
+    entry_launches = {name: 0 for name in KERNELS}
+    entry_errs = {name: 0.0 for name in KERNELS}
+    try:
+        fn, args = port_entry.entry()
+        reset_counts()
+        with contextlib.ExitStack() as stack:
+            recs = kernel_recorders(stack)
+            t0 = time.perf_counter()
+            g_out = fn(*args)
+            torch.cuda.synchronize()
+            g_s = time.perf_counter() - t0
+        entry_launches = read_counts()
+        kc = launch_checks(recs)
+        del recs
+        emit({"phase": "entry_kernels", **kc})
+        for name, row in kc.items():
+            entry_errs[name] = row["max_abs_err"]
+            if row["calls"] == 0 or row["disagree"]:
+                failures.append(f"entry: {name} disagrees with its plain "
+                                f"version on {row['disagree']} of "
+                                f"{row['calls']} launches")
+        cfn, cargs = port_entry.entry("cpu")
+        t0 = time.perf_counter()
+        c_out = cfn(*cargs)
+        c_s = time.perf_counter() - t0
+        p = psnr(g_out["color_u8"].cpu().numpy().astype(np.float32) / 255.0,
+                 c_out["color_u8"].numpy().astype(np.float32) / 255.0)
+        gs, cs = (frame.stats_from_vec(g_out["stats_vec"]),
+                  frame.stats_from_vec(c_out["stats_vec"]))
+        del fn, args, cfn, cargs, g_out, c_out
+        t0 = time.perf_counter()
+        dry = port_entry.dryrun_multichip(DRYRUN_WORKERS)
+        dry_s = time.perf_counter() - t0
+        emit({"phase": "entries", "entry_seconds_card": g_s,
+              "entry_seconds_cpu": c_s, "psnr_db_card_vs_cpu": p,
+              "stats": gs, "stats_equal": gs == cs,
+              "launches": entry_launches,
+              "dryrun_workers": DRYRUN_WORKERS,
+              # the dry run renders on the host's CPU cores, never the card
+              "dryrun_cpu_seconds": dry_s,
+              "dryrun_stats": dry["stats"],
+              "dryrun_shape": list(dry["color_u8"].shape)})
+        if not (p >= 40.0 and gs == cs):
+            failures.append(f"entry card vs CPU: PSNR {p:.2f} dB, stats "
+                            f"{gs} vs {cs}")
+        gate_launches("entry", entry_launches, KERNELS)
+    except Exception:
+        traceback.print_exc()
+        failures.append("entries phase raised")
+
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
@@ -1658,9 +1794,11 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
                 "launches": (launches[name] + sharded_launches[name]
-                             + viewer_launches[name]),
+                             + viewer_launches[name] + bench_launches[name]
+                             + entry_launches[name]),
                 "max_abs_err": max([c["max_abs_err"] for c in cs]
-                                   + [strip_errs[name], viewer_errs[name]]),
+                                   + [strip_errs[name], viewer_errs[name],
+                                      entry_errs[name]]),
                 "max_ulp": max((c["max_ulp"] for c in cs
                                 if c["max_ulp"] is not None), default=None),
                 "ms": cs[0]["ms"], "ms_eager": cs[0]["ms_eager"],

@@ -413,6 +413,32 @@ def test_viewer_core_on_the_card(dev, monkeypatch):
     assert torch.equal(got.cpu(), viewer.upscale_nearest(src, 720, 1280))
 
 
+@pytest.mark.cuda
+def test_bench_main_on_the_card(dev):
+    """The port's benchmark driver (app/bench.py) on the card at 256x128
+    on its default scene: exit 0, one stdout JSON line, the kernels'
+    frame >= 40 dB against the plain versions' (the parity line), the
+    stats line from the card.  Overflow is gated at the bench's own size,
+    1920x1080, by chip_smoke.py phase 15."""
+    import contextlib
+    import io
+    import json
+    from vk_renderer_tpu_torch.app import bench
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = bench.main(["--width", "256", "--height", "128", "--frames",
+                         "2", "--no-continuity"])
+    assert rc == 0
+    (line,) = out.getvalue().splitlines()
+    assert json.loads(line)["metric"] == "sponza_replica_256x128_fps"
+    lines = [json.loads(ln) for ln in err.getvalue().splitlines()
+             if ln.startswith("{")]
+    (parity,) = [ln for ln in lines if "parity_psnr_db" in ln]
+    assert parity["parity_psnr_db"] >= 40.0 and parity["parity_pass"]
+    (stats,) = [ln for ln in lines if "frametime_ms" in ln]
+    assert stats["backend"] == "cuda" and stats["triangles"] > 0
+
+
 ACROSS_FRAMES = 3
 
 

@@ -189,9 +189,14 @@ def test_scene_bridge_matches_device_put(make):
     cubemap quad interleaves undone)."""
     from vk_renderer_tpu_torch.scene.types import scene_to_torch
     host = make()
-    ref = host.device_put()
-    got = scene_to_torch(host, "cpu")
+    assert_scene_matches_device_put(host.device_put(),
+                                    scene_to_torch(host, "cpu"))
 
+
+def assert_scene_matches_device_put(ref, got):
+    """A port scene (``got``, torch tensors) holds the values of a JAX
+    ``device_put`` scene (``ref``), array by array, with the JAX heap and
+    cubemap quad interleaves undone."""
     def same(a, b, name):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                       err_msg=name)
