@@ -1,0 +1,8 @@
+"""shade_ms: host wall time inside the shade span (the benchmark's span
+around the program's stage, vkbench/hooks.SPANS), per window frame."""
+
+from vkbench.readers import span_ms
+
+
+def read(run):
+    return span_ms(run, "shade")
