@@ -1,7 +1,7 @@
 """The port's per-pass profiler on the CPU at 64x32: the JAX profiler's
-stage names in pass order, each a finite positive time, and the text
-table.  The stages run the port's own entry points; a stage the scene
-does not run is left out.  Imports no JAX."""
+stage names in the frame's order, each a finite positive time, and the
+text table.  The stages are read from the frame's own spans over whole
+frames; a stage the scene does not run is left out.  Imports no JAX."""
 
 import math
 import os
@@ -18,8 +18,8 @@ from vk_renderer_tpu_torch.scene.types import scene_to_torch
 
 import torch_threads  # noqa: F401  (bounds torch's threads)
 
-STAGES = ("setup", "bin", "records", "raster_opaque", "masked_kraster0",
-          "masked", "gbuffer", "shadow", "shade", "compose", "transparent",
+STAGES = ("shadow", "setup", "bin", "records", "raster_opaque", "masked",
+          "masked_kraster0", "gbuffer", "shade", "compose", "transparent",
           "tonemap", "full_frame")
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
                        "textured_box", "scene.gltf")
@@ -58,12 +58,14 @@ def test_profile_passes_stage_order(name, make, skipped, capsys):
     timings = profiler.profile_passes(scene, sd, st, cfg, iters=1)
     assert tuple(timings) == tuple(s for s in STAGES if s not in skipped)
     assert all(math.isfinite(v) and v > 0 for v in timings.values())
+    assert math.isfinite(timings.unprofiled_ms) and timings.unprofiled_ms > 0
     table = profiler.format_table(timings)
     print(table)
     lines = capsys.readouterr().out.splitlines()
     for stage in timings:
         assert any(ln.split()[:1] == [stage] for ln in lines), stage
     assert any(ln.split()[:2] == ["stage", "sum"] for ln in lines)
+    assert any(ln.split()[:1] == ["unprofiled"] for ln in lines)
 
 
 def test_profile_passes_without_shadows():

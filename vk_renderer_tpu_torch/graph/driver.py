@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..scene.camera import Camera
+from ..utils import tracing
 from .frame import FrameConfig, render_frame
 from .scenedata import RenderSettings, build_scene_data
 
@@ -35,6 +36,7 @@ def settings_to_torch(settings: RenderSettings, device) -> dict:
     }, device)
 
 
+@tracing.spanned("inputs")
 def frame_inputs(scene, camera: Camera, settings: RenderSettings,
                  cfg: FrameConfig):
     """render_frame's (scene_data, settings) tensors on the scene's

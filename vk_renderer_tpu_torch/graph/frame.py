@@ -40,6 +40,12 @@ the cap, which then take the dense path — exact, just slower); it has no
 term for the masked pass's tail-tile cap or ``pair_cap``, TPU forms with
 no counterpart here.  ``sparse_overflow`` counts pixels the opt-in plain
 shadow compaction (``shadow_sparse_cap``) leaves unfiltered.
+
+While a torch profiler records, each stage runs inside a ``vkr.*`` span
+and the frame counts its work (utils/tracing.py): ``frames``,
+``masked.rounds`` (k-buffer rounds that ran), ``masked.alpha_px`` (the
+alpha test's pixels) and ``shade.uncertain_px`` (the classifier's).
+graph/profiler.py reads the spans.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from ..ops import interp, post, raster, shade, skybox
 from ..ops import setup as rsetup
 from ..ops import texture as tex
 from ..ops.common import cdiv, from_tiles, to_tiles
+from ..utils import tracing
 
 NUM_CASCADES = 4
 
@@ -182,6 +189,7 @@ def _resolve_sky_cap(cfg: FrameConfig) -> int | None:
     return max(8192, (cfg.width * cfg.height) // 3)
 
 
+@tracing.spanned("classifier")
 def _build_classifier_tables(shadow_packed, cfg: FrameConfig):
     """The classifier's min/max cell tables over the pair-packed maps
     (frame.py:324-341): the coarse level bounds the blocker search, the
@@ -218,23 +226,25 @@ def render_shadow_maps(scene, world_pos, tri_visible, light_viewproj,
     maps = []
     overflow = torch.zeros((), dtype=torch.int32, device=world_pos[0].device)
     for i in range(n_active):
-        lvp = light_viewproj[i]
-        corn = tuple([lvp[r, 0] * cw[0][k] + lvp[r, 1] * cw[1][k]
-                      + lvp[r, 2] * cw[2][k] + lvp[r, 3] for k in range(3)]
-                     for r in range(4))
-        st = rsetup.triangle_setup(None, None, tri_visible, s, out_h,
-                                   cull=rsetup.CULL_FRONT, corners=corn)
-        (plan,) = raster.plan_view_buckets(
-            st, ((0, n_tris),), s, out_h, cfg.tile_w, cfg.tile_h,
-            (cfg.shadow_cap,), (cfg.rec_shadow,), big_cap=cfg.shadow_big_cap,
-            max_span=cfg.shadow_max_span)
-        padded = raster.pad_setup(st)
-        plan = raster.prepare_records(plan, padded, st["bbox"], s,
-                                      cfg.tile_w, cfg.tile_h)
-        d, _ = raster.rasterize_plan(plan, s, out_h, n_tris,
-                                     tile_w=cfg.tile_w, tile_h=cfg.tile_h)
-        maps.append(d)
-        overflow = overflow + plan["overflow"]
+        with tracing.span("shadow.cascade"):
+            lvp = light_viewproj[i]
+            corn = tuple([lvp[r, 0] * cw[0][k] + lvp[r, 1] * cw[1][k]
+                          + lvp[r, 2] * cw[2][k] + lvp[r, 3]
+                          for k in range(3)] for r in range(4))
+            st = rsetup.triangle_setup(None, None, tri_visible, s, out_h,
+                                       cull=rsetup.CULL_FRONT, corners=corn)
+            (plan,) = raster.plan_view_buckets(
+                st, ((0, n_tris),), s, out_h, cfg.tile_w, cfg.tile_h,
+                (cfg.shadow_cap,), (cfg.rec_shadow,),
+                big_cap=cfg.shadow_big_cap, max_span=cfg.shadow_max_span)
+            padded = raster.pad_setup(st)
+            plan = raster.prepare_records(plan, padded, st["bbox"], s,
+                                          cfg.tile_w, cfg.tile_h)
+            d, _ = raster.rasterize_plan(plan, s, out_h, n_tris,
+                                         tile_w=cfg.tile_w,
+                                         tile_h=cfg.tile_h)
+            maps.append(d)
+            overflow = overflow + plan["overflow"]
     return tex.pack_shadow_maps(torch.stack(maps)), overflow
 
 
@@ -248,14 +258,15 @@ def shadow_pass(scene, scene_data: dict, cfg: FrameConfig,
         dev = scene.positions[0].device
         return tex.pack_shadow_maps(torch.ones(
             (NUM_CASCADES, 1, 1), dtype=torch.float32, device=dev)), None
-    _, tri_visible = _visible_tris(scene, scene_data)
-    world_pos, _ = rsetup.transform_vertices(
-        scene.positions, scene.vert_obj, scene.obj_world,
-        scene_data["viewproj"])
-    if light_viewproj is None:
-        light_viewproj = scene_data["light_viewproj"]
-    return render_shadow_maps(scene, world_pos, tri_visible, light_viewproj,
-                              cfg, out_h=out_h)
+    with tracing.span("shadow"):
+        _, tri_visible = _visible_tris(scene, scene_data)
+        world_pos, _ = rsetup.transform_vertices(
+            scene.positions, scene.vert_obj, scene.obj_world,
+            scene_data["viewproj"])
+        if light_viewproj is None:
+            light_viewproj = scene_data["light_viewproj"]
+        return render_shadow_maps(scene, world_pos, tri_visible,
+                                  light_viewproj, cfg, out_h=out_h)
 
 
 def render_frame(scene, scene_data: dict, settings: dict, cfg: FrameConfig):
@@ -266,12 +277,16 @@ def render_frame(scene, scene_data: dict, settings: dict, cfg: FrameConfig):
 
     Returns dict: color f32[3, H, W], depth f32[H, W], stats (dict of i32
     scalars), stats_vec i32[6], color_u8 u8[H, W, 3]."""
-    shadow_maps, shadow_ovf = shadow_pass(scene, scene_data, cfg)
-    coarse = _build_classifier_tables(shadow_maps, cfg)
-    return render_view(scene, scene_data, settings, cfg, shadow_maps,
-                       shadow_coarse=coarse, extra_bin_overflow=shadow_ovf)
+    tracing.count("frames", 1)
+    with tracing.span("frame"):
+        shadow_maps, shadow_ovf = shadow_pass(scene, scene_data, cfg)
+        coarse = _build_classifier_tables(shadow_maps, cfg)
+        return render_view(scene, scene_data, settings, cfg, shadow_maps,
+                           shadow_coarse=coarse,
+                           extra_bin_overflow=shadow_ovf)
 
 
+@tracing.spanned("setup")
 def view_setup(scene, scene_data: dict, cfg: FrameConfig) -> dict:
     """Culling, vertex stage, triangle setup and the interpolation row
     tables of the camera view (vk_engine_run.cpp:435-480, mesh.vert)."""
@@ -327,6 +342,7 @@ def plan_view(scene, st: dict, cfg: FrameConfig) -> list:
         max_span=cfg.max_span))
 
 
+@tracing.spanned("shade")
 def shade_view(gbuf, scene, scene_data: dict, cfg: FrameConfig, shadow_maps,
                shadow_coarse=None):
     """Shading with the frame's shadow path (frame.py:1037-1063):
@@ -355,6 +371,7 @@ def shade_view(gbuf, scene, scene_data: dict, cfg: FrameConfig, shadow_maps,
     return rgb, alpha, None, None
 
 
+@tracing.spanned("compose")
 def compose(rgb, tid, depth, scene, scene_data: dict, settings: dict,
             cfg: FrameConfig, y_offset: int = 0,
             full_height: int | None = None):
@@ -378,6 +395,7 @@ def compose(rgb, tid, depth, scene, scene_data: dict, settings: dict,
                                    full_height=full_height)
 
 
+@tracing.spanned("tonemap")
 def post_chain(color, settings: dict, cfg: FrameConfig):
     """The registered postprocess passes (vk_engine_init.cpp:554-596) over
     the colour planes, applied where enable_postprocess is on; returns
@@ -390,6 +408,7 @@ def post_chain(color, settings: dict, cfg: FrameConfig):
                        color)
 
 
+@tracing.spanned("view")
 def render_view(scene, scene_data: dict, settings: dict, cfg: FrameConfig,
                 shadow_maps, y_offset: int = 0, full_height: int | None = None,
                 shadow_coarse=None, extra_bin_overflow=None):
@@ -417,8 +436,10 @@ def render_view(scene, scene_data: dict, settings: dict, cfg: FrameConfig,
     plans = plan_view(scene, st, cfg)
     plan_o = raster.prepare_records(plans.pop(0), padded, st["bbox"], w,
                                     cfg.tile_w, cfg.tile_h)
-    depth, tid = raster.rasterize_plan(plan_o, w, h, n_tris,
-                                       tile_w=cfg.tile_w, tile_h=cfg.tile_h)
+    with tracing.span("raster_opaque"):
+        depth, tid = raster.rasterize_plan(plan_o, w, h, n_tris,
+                                           tile_w=cfg.tile_w,
+                                           tile_h=cfg.tile_h)
 
     overflow = plan_o["overflow"]
     if extra_bin_overflow is not None:
@@ -479,6 +500,7 @@ def render_view(scene, scene_data: dict, settings: dict, cfg: FrameConfig,
             "color_u8": _to_u8_device(color)}
 
 
+@tracing.spanned("to_u8")
 def _to_u8_device(color: torch.Tensor) -> torch.Tensor:
     """Swapchain blit analog on the device: f32[3, H, W] -> u8[H, W, 3]."""
     q = torch.clamp(color, 0.0, 1.0) * 255.0 + 0.5
@@ -511,6 +533,7 @@ def _shader(cfg: FrameConfig):
     return shade.shade_pbr if cfg.shading == "pbr" else shade.shade_flat
 
 
+@tracing.spanned("gbuffer")
 def _build_gbuffer(scene, scene_data, tid, rows, vattr, vpos, px=None,
                    py=None):
     """Planar G-buffer (see ops/shade.py for the key list): dense [H, W],
@@ -561,6 +584,7 @@ def _winner_alpha(scene, tid, rows, vattr, px, py):
     return alpha
 
 
+@tracing.spanned("masked")
 def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     """Alpha-cutoff bucket resolved with the k-buffer (frame.py:579-777):
     round 0 keeps the ``masked_peels`` nearest strictly-increasing
@@ -605,6 +629,7 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
 
     def accept(lt, dom):
         sel = torch.nonzero(dom.reshape(-1)).squeeze(1)
+        tracing.count("masked.alpha_px", sel.numel())
         acc = torch.zeros(dom.numel(), dtype=torch.bool, device=dev)
         if sel.numel():
             alpha = _winner_alpha(scene, lt.reshape(-1)[sel], rows, vattr,
@@ -615,22 +640,25 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     def accept_layers(layers, peels_r, state, probe):
         depth_t, tid_t, pending, deepest = state
         for k in range(peels_r):
-            ld, lt = layers[k]
-            dom = pending & (lt >= 0)
-            acc = accept(lt, dom)
-            depth_t = torch.where(acc, ld, depth_t)
-            tid_t = torch.where(acc, lt, tid_t)
-            pending = dom & ~acc
-            deepest = torch.where(dom, ld, deepest)
+            with tracing.span("masked.accept"):
+                ld, lt = layers[k]
+                dom = pending & (lt >= 0)
+                acc = accept(lt, dom)
+                depth_t = torch.where(acc, ld, depth_t)
+                tid_t = torch.where(acc, lt, tid_t)
+                pending = dom & ~acc
+                deepest = torch.where(dom, ld, deepest)
         p = ((pending & (layers[-1][1] >= 0)).sum(dtype=torch.int32)
              if probe else torch.zeros((), dtype=torch.int32, device=dev))
         return (depth_t, tid_t, pending, deepest), p
 
     # round 0: the full record stream
     last0 = rounds == 1
-    layers = raster.rasterize_plan_k_tiled(
-        plan_m, n_tris, peel_plan[0] + (1 if last0 else 0), bound_t0,
-        tile_w=tw, tile_h=th)
+    tracing.count("masked.rounds", 1)
+    with tracing.span("masked_kraster0"):
+        layers = raster.rasterize_plan_k_tiled(
+            plan_m, n_tris, peel_plan[0] + (1 if last0 else 0), bound_t0,
+            tile_w=tw, tile_h=th)
     state = (depth_t, tid_t, valid_t,
              torch.zeros((n_tile, th, tw), dtype=torch.float32, device=dev))
     state, peel_ovf = accept_layers(layers, peel_plan[0], state, last0)
@@ -638,25 +666,29 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     # continuation rounds: skipped when nothing is pending; a run round
     # re-enters the records only on tiles that still hold pending pixels
     for r in range(1, rounds):
-        pending, deepest = state[2], state[3]
-        if not bool(pending.any()):
-            break
-        last = r == rounds - 1
-        pend_tiles = pending.any(dim=2).any(dim=1)
-        floor_t = torch.where(pending, deepest, 2.0)
-        counts = torch.where(pend_tiles.reshape(plan_m["counts"].shape),
-                             plan_m["counts"], 0)
-        layers = raster.rasterize_plan_k_tiled(
-            plan_m, n_tris, peel_plan[r] + (1 if last else 0), bound_t0,
-            tile_w=tw, tile_h=th, floor_t=floor_t, counts=counts)
-        state, p_r = accept_layers(layers, peel_plan[r], state, last)
-        peel_ovf = peel_ovf + p_r
+        with tracing.span("masked.tail"):
+            pending, deepest = state[2], state[3]
+            if not bool(pending.any()):
+                break
+            tracing.count("masked.rounds", 1)
+            last = r == rounds - 1
+            pend_tiles = pending.any(dim=2).any(dim=1)
+            floor_t = torch.where(pending, deepest, 2.0)
+            counts = torch.where(
+                pend_tiles.reshape(plan_m["counts"].shape),
+                plan_m["counts"], 0)
+            layers = raster.rasterize_plan_k_tiled(
+                plan_m, n_tris, peel_plan[r] + (1 if last else 0), bound_t0,
+                tile_w=tw, tile_h=th, floor_t=floor_t, counts=counts)
+            state, p_r = accept_layers(layers, peel_plan[r], state, last)
+            peel_ovf = peel_ovf + p_r
     depth_t, tid_t = state[0], state[1]
     depth = from_tiles(depth_t, rows_t, cols_t)[:h, :w]
     tid = from_tiles(tid_t, rows_t, cols_t)[:h, :w]
     return depth, tid, peel_ovf
 
 
+@tracing.spanned("transparent")
 def _transparent_pass(scene, scene_data, cfg: FrameConfig, plan_t, rows,
                       vattr, vpos, depth, shadow_maps, color,
                       shadow_coarse=None):

@@ -1,123 +1,172 @@
-"""Per-pass timing breakdown of one frame.
+"""Per-pass timing breakdown of whole frames, read from the frame's own
+spans.
 
 Port of vk_renderer_tpu/graph/profiler.py (``profile_passes``,
-``format_table``).  Each render stage runs on its own over the previous
-stage's outputs — the same entry points graph/frame.py chains — and is
-timed as the median wall time of ``iters`` runs.  On a CUDA scene one
-warm-up run comes first (the kernels' first build, the allocator) and
-each run is closed by ``torch.cuda.synchronize()``, so the time covers
-the stage's device work.  Stage names and order are the JAX
-profiler's: setup, bin, records, raster_opaque, masked_kraster0, masked,
-gbuffer, shadow, shade (the classifier tables and the classified filter
-included), compose, transparent, tonemap, then the whole frame as
-``full_frame``.  A stage the scene or config does not run (no masked or
-transparent triangles, shadows compiled out) is left out.
+``format_table``).  ``profile_passes`` renders ``iters`` whole frames
+(``render_frame``) under a torch profiler and reduces the frame's
+``vkr.*`` spans (utils/tracing.py) to the JAX profiler's stage names, in
+the order the frame runs them: shadow, setup, bin, records,
+raster_opaque, masked (with masked_kraster0 inside it), gbuffer, shade,
+compose, transparent, tonemap, then the whole frame as ``full_frame``.
+A stage the scene or config does not run (no masked or transparent
+triangles, shadows compiled out) is left out.
+
+A stage's host ms is the wall time inside its spans, a frame; its device
+ms the time of the kernels, copies and fills launched inside them.  A
+stage counts only the spans that no other stage holds (masked_kraster0
+only those inside the masked pass): the shadow cascades' own binning and
+records count in ``shadow``, the transparent peels' G-buffers in
+``transparent``.  So the stages partition the frame, and the part of the
+frame outside every stage (the classifier tables, the u8 conversion, the
+host code between stages) is ``full_frame`` less their sum.  On a CUDA
+scene one unprofiled frame comes first (the kernels' first build, the
+allocator), and each frame ends in ``torch.cuda.synchronize()``.
+
+The host ms are taken while the profiler records, which slows the
+eager frame (1.3-2.2x on the bench frame on an H100): ``iters``
+unprofiled frames run first, and their mean wall time stands beside the
+profiled one.
 """
 
 from __future__ import annotations
 
+import bisect
+import re
 import time
 
 import torch
 
-from ..ops import raster
-from ..ops.common import cdiv, to_tiles
+from ..utils import tracing
 from . import frame as F
 
+# stage -> the stage whose spans hold the ones it counts (None: the
+# frame's own)
+STAGES = {"shadow": None, "setup": None, "bin": None, "records": None,
+          "raster_opaque": None, "masked": None, "masked_kraster0": "masked",
+          "gbuffer": None, "shade": None, "compose": None,
+          "transparent": None, "tonemap": None}
+FRAME = "full_frame"
+_RUNTIME = re.compile(r"^cu(da)?[A-Z]")   # cudaLaunchKernel, cuMemcpy...
 
-def _timed(fn, iters: int, sync: bool):
-    """(median ms over ``iters`` runs, last output); ``sync``: CUDA, warm
-    up once and synchronise after each run."""
-    if sync:
-        fn()
-        torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        out = fn()
-        if sync:
-            torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    times.sort()
-    return 1000.0 * times[len(times) // 2], out
+
+class PassTimes(dict):
+    """{stage: host ms a frame, profiled}, in the frame's order;
+    ``device_ms`` holds the device ms a frame of the same stages,
+    ``unprofiled_ms`` the wall ms of a frame with no profiler on."""
+
+    def __init__(self, host_ms: dict, device_ms: dict, frames: int,
+                 unprofiled_ms: float):
+        super().__init__(host_ms)
+        self.device_ms = device_ms
+        self.frames = frames
+        self.unprofiled_ms = unprofiled_ms
+
+
+def _stage_of(name: str):
+    """The stage a ``vkr.*`` span name stands for, else None."""
+    if not name.startswith(tracing.PREFIX):
+        return None
+    name = name[len(tracing.PREFIX):]
+    if name == "frame":
+        return FRAME
+    return name if name in STAGES else None
+
+
+def _counted(events):
+    """The host spans of the profile that count for a stage, as
+    (start ns, end ns, stage), and the device events as (launch ns,
+    duration ns)."""
+    spans, launched, device = [], {}, []
+    for e in events:
+        if str(e.device_type()).endswith("CUDA"):
+            if not e.is_user_annotation():
+                device.append(((e.correlation_id(),
+                                e.linked_correlation_id()), e.duration_ns()))
+            continue
+        name = e.name()
+        stage = _stage_of(name)
+        if stage is not None:
+            spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                          stage))
+        elif _RUNTIME.match(name):
+            launched[e.correlation_id()] = e.start_ns()
+    spans.sort(key=lambda sp: (sp[0], -sp[1]))
+    counted, stack = [], []     # stack: (end, the stage holding inside)
+    for s0, s1, stage in spans:
+        while stack and stack[-1][0] <= s0:
+            stack.pop()
+        holder = stack[-1][1] if stack else None
+        if stage == FRAME or holder == STAGES[stage]:
+            counted.append((s0, s1, stage))
+        stack.append((s1, holder if stage == FRAME else stage))
+    at = [(launched.get(c0, launched.get(c1)), ns)
+          for (c0, c1), ns in device]
+    return counted, [(t, ns) for t, ns in at if t is not None]
 
 
 def profile_passes(scene, scene_data: dict, settings: dict,
-                   cfg: F.FrameConfig, iters: int = 5) -> dict:
-    """Return {stage_name: ms} for one frame's stages, in pass order, plus
-    ``full_frame`` (render_frame end to end).  ``scene_data`` and
-    ``settings`` are render_frame's tensors (driver.frame_inputs)."""
-    w, h = cfg.width, cfg.height
-    n_tris = scene.num_triangles
-    sync = scene.positions[0].device.type == "cuda"
-    timings: dict[str, float] = {}
+                   cfg: F.FrameConfig, iters: int = 5) -> PassTimes:
+    """Host and device ms a frame of each stage, over ``iters`` profiled
+    frames, plus ``full_frame``, and the unprofiled frame's ms over
+    ``iters`` frames before them.  ``scene_data`` and ``settings`` are
+    render_frame's tensors (driver.frame_inputs)."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = scene.positions[0].device.type == "cuda"
+    activities = [ProfilerActivity.CPU]
 
-    def stage(name, fn):
-        timings[name], out = _timed(fn, iters, sync)
-        return out
+    def frames():
+        for _ in range(iters):
+            F.render_frame(scene, scene_data, settings, cfg)
+            if cuda:
+                torch.cuda.synchronize()
 
-    view = stage("setup", lambda: F.view_setup(scene, scene_data, cfg))
-    st, padded = view["st"], view["padded"]
-    rows, vattr, vpos = view["rows"], view["vattr"], view["vpos"]
-    plans = stage("bin", lambda: F.plan_view(scene, st, cfg))
-    plans = stage("records", lambda: [
-        raster.prepare_records(p, padded, st["bbox"], w, cfg.tile_w,
-                               cfg.tile_h) for p in plans])
-    plan_o = plans.pop(0)
-    depth, tid = stage("raster_opaque", lambda: raster.rasterize_plan(
-        plan_o, w, h, n_tris, tile_w=cfg.tile_w, tile_h=cfg.tile_h))
-
-    if scene.n_masked_vis > 0:
-        plan_m = plans.pop(0)
-        bound_t = to_tiles(depth, cdiv(h, cfg.tile_h), cdiv(w, cfg.tile_w),
-                           cfg.tile_h, cfg.tile_w, 2.0)
-        stage("masked_kraster0", lambda: raster.rasterize_plan_k_tiled(
-            plan_m, n_tris, cfg.masked_peels, bound_t, tile_w=cfg.tile_w,
-            tile_h=cfg.tile_h))
-        depth_o, tid_o = depth, tid
-        depth, tid, _ = stage("masked", lambda: F._masked_pass(
-            scene, cfg, plan_m, rows, vattr, depth_o, tid_o))
-
-    gbuf = stage("gbuffer", lambda: F._build_gbuffer(
-        scene, scene_data, tid, rows, vattr, vpos))
-
-    if cfg.enable_shadows:
-        shadow_maps = stage("shadow", lambda: F.shadow_pass(
-            scene, scene_data, cfg)[0])
-    else:
-        shadow_maps = F.shadow_pass(scene, scene_data, cfg)[0]
-
-    def shade_stage():
-        coarse = F._build_classifier_tables(shadow_maps, cfg)
-        return F.shade_view(gbuf, scene, scene_data, cfg, shadow_maps,
-                            coarse)[0], coarse
-
-    rgb, coarse = stage("shade", shade_stage)
-    color, _ = stage("compose", lambda: F.compose(
-        rgb, tid, depth, scene, scene_data, settings, cfg))
-
-    if scene.n_transparent > 0:
-        plan_t = plans.pop(0)
-        color_o = color
-        color = stage("transparent", lambda: F._transparent_pass(
-            scene, scene_data, cfg, plan_t, rows, vattr, vpos, depth,
-            shadow_maps, color_o, shadow_coarse=coarse)[0])
-
-    stage("tonemap", lambda: F.post_chain(color, settings, cfg))
-    stage("full_frame", lambda: F.render_frame(scene, scene_data, settings,
-                                               cfg))
-    return timings
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+        F.render_frame(scene, scene_data, settings, cfg)
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames()
+    unprofiled = (time.perf_counter() - t0) * 1e3 / iters
+    with profile(activities=activities) as prof:
+        frames()
+    counted, device = _counted(prof.profiler.kineto_results.events())
+    host, dev = {}, {}
+    for s0, s1, stage in counted:
+        host[stage] = host.get(stage, 0) + s1 - s0
+        dev[stage] = dev.get(stage, 0)
+    starts = [s0 for s0, _, _ in counted]
+    for t, ns in device:
+        for _, s1, stage in counted[:bisect.bisect_right(starts, t)]:
+            if s1 >= t:     # the launch lies inside this stage's span
+                dev[stage] += ns
+    order = list(dict.fromkeys(st for _, _, st in counted if st != FRAME))
+    order.append(FRAME)
+    return PassTimes({s: host.get(s, 0) / 1e6 / iters for s in order},
+                     {s: dev.get(s, 0) / 1e6 / iters for s in order}, iters,
+                     unprofiled)
 
 
-def format_table(timings: dict) -> str:
-    """The timings as a text table, with the stage sum beside the whole
-    frame (stages run on their own, so the two differ)."""
-    total = sum(v for k, v in timings.items() if k != "full_frame")
-    lines = ["per-pass ms (stages run on their own; the frame differs):"]
-    for k, v in timings.items():
-        if k == "full_frame":
-            continue
-        lines.append(f"  {k:<16} {v:9.2f} ms")
-    lines.append(f"  {'stage sum':<16} {total:9.2f} ms")
-    lines.append(f"  {'full_frame':<16} {timings['full_frame']:9.2f} ms")
+def format_table(timings: PassTimes) -> str:
+    """The timings as a text table, with the sum of the stages the frame
+    holds directly beside the whole frame."""
+    dev = timings.device_ms
+    lines = [f"per-pass ms a frame over {timings.frames} "
+             f"frames (host: wall time inside the stage's spans while the "
+             f"profiler records; device: the kernels launched inside them):",
+             f"  {'stage':<16} {'host':>9} {'device':>9}"]
+
+    def row(name, host, device, note=""):
+        lines.append(f"  {name:<16} {host:9.2f} {device:9.2f}{note}")
+
+    top = [s for s in timings if s != FRAME and STAGES[s] is None]
+    for s, v in timings.items():
+        if s != FRAME:
+            row(s, v, dev[s],
+                f"  (inside {STAGES[s]})" if STAGES[s] else "")
+    row("stage sum", sum(timings[s] for s in top),
+        sum(dev[s] for s in top))
+    row(FRAME, timings[FRAME], dev[FRAME])
+    lines.append(f"  {'unprofiled':<16} {timings.unprofiled_ms:9.2f}"
+                 f"  (the frame with no profiler on: profiled / unprofiled "
+                 f"{timings[FRAME] / timings.unprofiled_ms:.2f}x)")
     return "\n".join(lines)

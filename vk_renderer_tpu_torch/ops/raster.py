@@ -18,11 +18,13 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import binning
 from . import raster_kernels as rk
 from .common import cdiv
 
 
+@tracing.spanned("bin")
 def plan_view_buckets(st: dict, bounds, width: int, height: int,
                       tile_w: int, tile_h: int, caps, rec_caps,
                       max_span: int = 16, big_cap: int = 512):
@@ -44,6 +46,7 @@ def plan_view_buckets(st: dict, bounds, width: int, height: int,
         anchor=st["anchor"])
 
 
+@tracing.spanned("records")
 def prepare_records(plan: dict, setup_padded: dict, bbox, width: int,
                     tile_w: int, tile_h: int) -> dict:
     """Materialize the packed raster records for a plan.  Call once,

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import texture as tex
 
 PI = 3.14159265359
@@ -411,6 +412,7 @@ def _classify_shadow(shadow_coarse, su, sv, sz, layer, map_size: int,
     return lit_c, blk_c & ~lit_c
 
 
+@tracing.spanned("shade.classify")
 def classified_shadow_factor(shadow_maps, shadow_coarse, gbuf, scene_data,
                              shadow_mode: int, enable_shadows: bool,
                              n_dot_l, cap: int, quad_lit: bool = True,
@@ -443,6 +445,7 @@ def classified_shadow_factor(shadow_maps, shadow_coarse, gbuf, scene_data,
     base = (active & blk_c).to(torch.float32)
     sel = torch.nonzero(uncertain.reshape(-1)).squeeze(1)
     n_unc = sel.numel()
+    tracing.count("shade.uncertain_px", n_unc)
     if n_unc > cap:
         shadow = torch.where(uncertain, _filter_dispatch(
             shadow_maps, su, sv, sz, layer, shadow_mode), base)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import texture as tex
 from .interp import pixel_centers
 
@@ -50,6 +51,7 @@ def skybox_colors(cubemap: torch.Tensor, view: torch.Tensor,
                             y_offset)
 
 
+@tracing.spanned("sky")
 def composite_skybox(color, depth: torch.Tensor, cubemap: torch.Tensor,
                      view: torch.Tensor, proj: torch.Tensor,
                      sparse_cap: int | None = None, y_offset=0.0,

@@ -1,1 +1,2 @@
-"""Host utilities (NumPy) and the native-source builder."""
+"""Host utilities (NumPy), the native-source builder and the frame's
+spans and counters."""
