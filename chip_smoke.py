@@ -5,8 +5,8 @@
 
 Phases, each printed as one JSON object on its own line:
   1. card: the GPU's name and power limit (nvidia-smi),
-  2. build: compile csrc/raster.cu and csrc/post.cu for sm_90a from this
-     checkout, one nvcc per source, both started together,
+  2. build: compile csrc/raster.cu, csrc/post.cu and csrc/masked.cu for
+     sm_90a from this checkout, one nvcc per source, all started together,
   3. scene: load the committed Sponza replica (assets/sponza_replica)
      with the NumPy texture heap (the frame's), and again through the
      native bridge (native/texops.cpp) where g++ builds it: both load
@@ -25,7 +25,9 @@ Phases, each printed as one JSON object on its own line:
      against its plain PyTorch version — the raster kernels bit for bit,
      the post kernels within 2 ulp (and the gradient's strip form, rows
      270-539 of the 1080-row background, equal to those rows of the whole
-     one) — with both times, the bound (the
+     one), and the masked pass's resolve kernel on each of the frame's
+     rounds bit for bit (state, probe and tested-pixel counts) — with
+     both times, the bound (the
      least time the card could take for the same work), and for the
      raster kernels the largest record count of one tile and of one
      8-row band and the spread of their blocks' times (%globaltimer),
@@ -160,6 +162,7 @@ POST_ULP = 2
 HEAVY_RECORDS = 3100
 RASTER_SRC = "vk_renderer_tpu_torch/csrc/raster.cu"
 POST_SRC = "vk_renderer_tpu_torch/csrc/post.cu"
+MASKED_SRC = "vk_renderer_tpu_torch/csrc/masked.cu"
 FIXTURE = "tests/fixtures/textured_box/scene.gltf"
 # published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit):
 # HBM3 bandwidth and the f32 rate outside the tensor cores
@@ -213,13 +216,14 @@ def ptxas_report(log: str) -> dict:
     """Registers and spilled bytes (stores + loads) of every kernel in an
     ``nvcc -Xptxas -v`` log, by kernel name and template arguments."""
     kernels = ("raster_depth_kernel", "raster_layers_kernel",
-               "plan_segments", "tonemap_kernel", "gradient_kernel")
-    pattern = re.compile(r"(%s)(I(?:Li\d+E)+E)?" % "|".join(kernels))
+               "plan_segments", "tonemap_kernel", "gradient_kernel",
+               "masked_resolve_kernel")
+    pattern = re.compile(r"(%s)(I(?:L[ib]\d+E)+E)?" % "|".join(kernels))
     out, name, spill = {}, None, 0
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             m = pattern.search(ln)
-            args = re.findall(r"Li(\d+)E", m.group(2) or "") if m else []
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "") if m else []
             name = (m.group(1) + (f"<{','.join(args)}>" if args else "")
                     if m else ln.split("'")[1])
             spill = 0
@@ -442,6 +446,67 @@ def compare_post(name, shape_tag, kernel_fn, plain_fn, args, n_bytes,
     return out
 
 
+def resolve_bytes(args) -> int:
+    """Bytes one resolve call needs on these inputs, each read or written
+    once: the state in and out, each tested pixel's layer depth and id,
+    the probe layer's id of each pixel pending at the end, the two
+    32-byte rows of each distinct tested triangle and one 32-byte sector
+    of each distinct vertex of theirs.  The texel reads are left out
+    (their addresses are the sampler's), so the bound is low."""
+    import torch
+    from vk_renderer_tpu_torch.ops import masked
+    d, i, n_walk, probe, state, scene, rows = args[:7]
+    with Recorder(masked, "winner_alpha") as rec:
+        out, _ = masked.masked_resolve_plain(*args)
+    tris = [c[0][1] for c in rec.calls]
+    tris = torch.unique(torch.cat(tris)) if tris else torch.zeros(
+        0, dtype=torch.int32, device=d.device)
+    verts = torch.unique(rows[1][tris.long(), 4:7])
+    n_px = state[0].numel()
+    n_tested = sum(int(c[0][1].numel()) for c in rec.calls)
+    n_bytes = (n_px * (8 + (5 if state[2] is not None else 0)) + n_px * 13
+               + 8 * n_tested + (4 * int(out[2].sum()) if probe else 0)
+               + 64 * tris.numel() + 32 * verts.numel())
+    return n_bytes, n_tested
+
+
+def compare_resolve(tag, args) -> dict:
+    """The resolve kernel against its plain version on one round's
+    recorded inputs: the state (depths as bits), the probe count and the
+    tested-pixel count equal; both times and the bound."""
+    import torch
+    from vk_renderer_tpu_torch.ops import masked
+    args = args[:11]              # the frame's call, without its counter
+    dev = args[0].device
+    t_k = torch.zeros((), dtype=torch.int64, device=dev)
+    t_p = torch.zeros((), dtype=torch.int64, device=dev)
+    k, kp = masked.masked_resolve(*args, t_k)
+    p, pp = masked.masked_resolve_plain(*args, t_p)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               if a.dtype == torch.float32 else torch.equal(a, b)
+               for a, b in zip(k, p))
+    same = same and int(t_k) == int(t_p) and (
+        (kp is None and pp is None) or int(kp) == int(pp))
+    n_bytes, n_tested = resolve_bytes(args)
+    out = {"phase": "kernel_check", "kernel": "masked_resolve",
+           "input": tag, "layers": int(args[0].shape[0]),
+           "walked": int(args[2]), "probe": bool(args[3]),
+           "tiles": int(args[0].shape[1]), "tested_px": n_tested,
+           "tested_px_kernel": int(t_k), "bit_exact": bool(same),
+           "id_mismatches": int((k[1] != p[1]).sum()),
+           "pending_mismatches": int((k[2] != p[2]).sum()),
+           "max_abs_err": float((k[0] - p[0]).abs().max()), "max_ulp": None,
+           "ms": graph_ms(lambda: masked.masked_resolve(*args), KERNEL_REPS),
+           "ms_eager": cuda_ms(lambda: masked.masked_resolve(*args),
+                               KERNEL_REPS),
+           "plain_ms": cuda_ms(lambda: masked.masked_resolve_plain(*args),
+                               1),
+           **bound(n_bytes, 0), "library_ms": None}
+    emit(out)
+    return out
+
+
 def check_classifier(args, kw) -> dict:
     """One classified_shadow_factor call (its recorded arguments) against
     the dense filter on the same inputs: bit-exact on the active pixels
@@ -581,7 +646,7 @@ def flip_kinds(host, scene, viewproj, ref_g, strip_g, masked: range,
     is the largest f64 depth gap among the depth_order pixels."""
     import numpy as np
     import torch
-    from vk_renderer_tpu_torch.graph import frame
+    from vk_renderer_tpu_torch.ops import masked as masked_ops
     ref_tid = ref_g[0]
     tid = torch.cat([g[0] for g in strip_g])
     h, w = ref_tid.shape
@@ -634,7 +699,7 @@ def flip_kinds(host, scene, viewproj, ref_g, strip_g, masked: range,
         return float(lam @ z) if (lam >= -1e-9).all() else None
 
     def alphas(g, t, px, py):
-        return frame._winner_alpha(
+        return masked_ops.winner_alpha(
             scene, torch.as_tensor(t, dtype=torch.int32, device=dev), g[1],
             g[2], torch.as_tensor(px, dtype=torch.float32, device=dev),
             torch.as_tensor(py, dtype=torch.float32, device=dev)).cpu()
@@ -986,7 +1051,7 @@ def main() -> int:
         from vk_renderer_tpu_torch.app import bench, headless
         from vk_renderer_tpu_torch.graph import driver, frame, profiler
         from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
-        from vk_renderer_tpu_torch.ops import post, shade
+        from vk_renderer_tpu_torch.ops import masked, post, shade
         from vk_renderer_tpu_torch.ops import raster_kernels as rk
         from vk_renderer_tpu_torch.ops.common import cdiv, from_tiles
         from vk_renderer_tpu_torch.parallel import sharded
@@ -1008,7 +1073,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     wrappers = {"raster_depth": rk.rasterize_depth_grid,
                 "raster_layers": rk.rasterize_layers_grid,
-                "tonemap": post.tonemap, "gradient": post.gradient}
+                "tonemap": post.tonemap, "gradient": post.gradient,
+                "masked_resolve": masked.masked_resolve}
 
     def reset_counts():
         for fn in wrappers.values():
@@ -1039,9 +1105,10 @@ def main() -> int:
     # ---- 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     try:
-        with ThreadPoolExecutor(max_workers=2) as pool:
+        with ThreadPoolExecutor(max_workers=3) as pool:
             futures = {src: pool.submit(mod.build_kernels)
-                       for src, mod in ((RASTER_SRC, rk), (POST_SRC, post))}
+                       for src, mod in ((RASTER_SRC, rk), (POST_SRC, post),
+                                        (MASKED_SRC, masked))}
             libs = {src: f.result() for src, f in futures.items()}
         ptxas = {}
         for src, lib_path in libs.items():
@@ -1097,7 +1164,8 @@ def main() -> int:
     with Recorder(rk, "rasterize_depth_grid") as rec_d, \
             Recorder(rk, "rasterize_layers_grid") as rec_k, \
             Recorder(frame.POSTPROCESS_REGISTRY, "tonemap") as rec_t, \
-            Recorder(shade, "classified_shadow_factor") as rec_c:
+            Recorder(shade, "classified_shadow_factor") as rec_c, \
+            Recorder(masked, "masked_resolve") as rec_m:
         t0 = time.perf_counter()
         out = driver.render(scene, cam, settings, cfg)
         torch.cuda.synchronize()
@@ -1121,7 +1189,7 @@ def main() -> int:
     gate_stats("frame", stats)
     if not (finite and shape_ok):
         failures.append("frame output not finite or misshapen")
-    gate_launches("bench frame", launches, KERNELS)
+    gate_launches("bench frame", launches, list(KERNELS) + ["masked_resolve"])
     ref4 = {"color": color, "depth": out["depth"], "stats": stats}
     del out, color
 
@@ -1215,7 +1283,21 @@ def main() -> int:
         if not cs or not all(c["max_ulp"] <= POST_ULP for c in cs):
             failures.append(f"{name} is more than {POST_ULP} ulp from its "
                             f"plain version")
-    del rec_d, rec_k, rec_t, cam_calls, sh_calls
+    # the masked pass's resolve on each round of the bench frame
+    resolve_checks = []
+    try:
+        for r, (args, _) in enumerate(rec_m.calls):
+            resolve_checks.append(compare_resolve(
+                f"masked_round{r}_{WIDTH}x{HEIGHT}_k{args[0].shape[0]}",
+                args))
+    except Exception:
+        traceback.print_exc()
+        failures.append("resolve check raised")
+    if (len(resolve_checks) < 2 or len(resolve_checks) != len(rec_m.calls)
+            or not all(c["bit_exact"] for c in resolve_checks)):
+        failures.append("masked_resolve disagrees with its plain version "
+                        "(or a round's check is missing)")
+    del rec_d, rec_k, rec_t, rec_m, cam_calls, sh_calls
 
     # ---- 6. the classifier's bench-frame call against the dense filter
     try:
@@ -1806,7 +1888,16 @@ def main() -> int:
                 "bound_ms": cs[0]["bound_ms"], "bound_by": cs[0]["bound_by"],
                 "library_ms": None}
 
-    emit({"kernels": [entry(name) for name in KERNELS]})
+    rc0 = resolve_checks[0] if resolve_checks else {}
+    emit({"kernels": [entry(name) for name in KERNELS] + [{
+        "name": "masked_resolve", "route": "cuda", "source": MASKED_SRC,
+        "replaces": None, "launches": launches["masked_resolve"],
+        "max_abs_err": max([c["max_abs_err"] for c in resolve_checks],
+                           default=None),
+        "max_ulp": None, "ms": rc0.get("ms"),
+        "ms_eager": rc0.get("ms_eager"), "plain_ms": rc0.get("plain_ms"),
+        "bound_ms": rc0.get("bound_ms"), "bound_by": rc0.get("bound_by"),
+        "library_ms": None}]})
     print(card_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -29,7 +29,7 @@ import torch
 
 from vk_renderer_tpu_torch.app import bench
 from vk_renderer_tpu_torch.graph import driver, frame
-from vk_renderer_tpu_torch.ops import post
+from vk_renderer_tpu_torch.ops import masked, post
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.scene.types import scene_to_torch
 from vk_renderer_tpu_torch.utils.image import psnr
@@ -133,18 +133,21 @@ def test_bench_refuses_a_missing_cuda_device(monkeypatch, capsys):
 
 def test_plain_kernels_restores_the_dispatchers_after_a_raise():
     real = (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient)
+            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient,
+            masked.masked_resolve)
     with pytest.raises(ValueError, match="inside"):
         with bench.plain_kernels():
             assert (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
                     frame.POSTPROCESS_REGISTRY["tonemap"],
-                    post.gradient) == (rk.rasterize_depth_grid_plain,
-                                       rk.rasterize_layers_grid_plain,
-                                       post.tonemap_plain,
-                                       post.gradient_plain)
+                    post.gradient, masked.masked_resolve) == (
+                        rk.rasterize_depth_grid_plain,
+                        rk.rasterize_layers_grid_plain,
+                        post.tonemap_plain, post.gradient_plain,
+                        masked.masked_resolve_plain)
             raise ValueError("inside")
     assert (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient) == real
+            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient,
+            masked.masked_resolve) == real
 
 
 def _imported_roots(path: str) -> set:

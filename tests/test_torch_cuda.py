@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the raster kernels bit for bit (depths and ids), the post kernels
 within 2 ulp (the tonemap's logf / expf are CUDA's; the gradient is
-bit-exact).  Also the shadow classifier (PyTorch ops, no kernel of its
+bit-exact), the masked pass's resolve bit for bit (its state, the probe
+and the tested-pixel counts; synthetic rounds, and the pass on the
+Sponza replica at 1080p).  Also the shadow classifier (PyTorch ops, no kernel of its
 own) on the card: its masks equal the CPU's and its factor the dense
 filter's, bit for bit.
 
@@ -18,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from vk_renderer_tpu_torch.ops import binning, post, raster, shade
+from vk_renderer_tpu_torch.ops import binning, masked, post, raster, shade
 from vk_renderer_tpu_torch.ops import texture as tex
 from vk_renderer_tpu_torch.ops import raster_kernels as rk
 from vk_renderer_tpu_torch.ops import setup
 from vk_renderer_tpu_torch.ops.common import max_ulp
 
+import masked_cases as mc
 import torch_threads  # noqa: F401  (bounds torch's threads)
 from raster_streams import (COLS, H, N_TILES, R, SENT, TH, TW, W,
                             clip_scene, heavy_stream, pad_records,
@@ -544,3 +547,165 @@ def test_strips_across_cards(dev, case, tmp_path):
     assert got["gathered_on"] == "cuda"
     assert all(got["equal"].values()), got["equal"]
     assert got["stats"]["bin_overflow"] == 0
+
+
+# ---- the masked pass's resolve (ops/masked.py, csrc/masked.cu) ----------
+
+def _resolve_case(seed, k_layers, probe, custom, colours, cont,
+                  max_alpha=255, empty_share=0.1):
+    scene, rows, vattr = mc.scene_and_rows(seed, custom, colours, max_alpha)
+    d, i = mc.layers(seed, k_layers, empty_share=empty_share)
+    n_walk = k_layers - 1 if probe and k_layers > 1 else k_layers
+    return ((d, i, n_walk, probe, mc.state(seed, continuing=cont), scene,
+             rows, vattr, mc.COLS, mc.WIDTH, mc.HEIGHT))
+
+
+# random K in 1..11 over the seeds, the probe, the custom-sampler path,
+# the vertex-colour layout and a continuation state each on some of them
+RESOLVE_CASES = {f"seed{s}_k{1 + (7 * s) % 11}": (
+    s, 1 + (7 * s) % 11, s % 2 == 1, s % 3 == 2, s % 4 == 3, s % 5 >= 3,
+    150 if s % 2 else 255) for s in range(14)}
+RESOLVE_CASES["all_empty"] = (20, 4, True, False, False, False, 255, 1.0)
+RESOLVE_CASES["no_empty_custom"] = (21, 10, True, True, True, True, 140,
+                                    0.0)
+
+
+def _same_state(got, want):
+    for name, a, b in zip(("depth", "tid", "pending", "deepest"), got,
+                          want):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(RESOLVE_CASES))
+def test_resolve_kernel_matches_plain(dev, case):
+    args = mc.on(dev, _resolve_case(*RESOLVE_CASES[case]))
+    probe = args[3]
+    tested_k = torch.zeros((), dtype=torch.int64, device=dev)
+    tested_p = torch.zeros((), dtype=torch.int64, device=dev)
+    before = masked.masked_resolve.launches
+    got, got_p = masked.masked_resolve(*args, tested_k)
+    want, want_p = masked.masked_resolve_plain(*args, tested_p)
+    torch.cuda.synchronize()
+    assert masked.masked_resolve.launches == before + 1
+    assert got[0].device.type == "cuda"
+    _same_state(got, want)
+    assert int(tested_k) == int(tested_p)
+    if probe:
+        assert int(got_p) == int(want_p)
+    else:
+        assert got_p is None and want_p is None
+    # without a counter the kernel counts nothing and resolves the same
+    again, _ = masked.masked_resolve(*args)
+    _same_state(again, want)
+
+
+@pytest.mark.cuda
+def test_resolve_kernel_chains_two_rounds(dev):
+    """Round 0 (K = 10) and a probe round (6 + 1) on its state, as the
+    pass chains them, against the plain version's chain."""
+    scene, rows, vattr = mc.on(dev, mc.scene_and_rows(30, max_alpha=140))
+    d0, i0 = mc.on(dev, mc.layers(30, 10, empty_share=0.02))
+    d1, i1 = mc.on(dev, mc.layers(31, 7, empty_share=0.1))
+    st = mc.on(dev, mc.state(30))
+    tail = (scene, rows, vattr, mc.COLS, mc.WIDTH, mc.HEIGHT)
+    out = {}
+    for name, fn in (("kernel", masked.masked_resolve),
+                     ("plain", masked.masked_resolve_plain)):
+        s0, p0 = fn(d0, i0, 10, False, st, *tail)
+        s1, p1 = fn(d1, i1, 6, True, s0, *tail)
+        assert p0 is None
+        out[name] = (s1, int(p1))
+    _same_state(out["kernel"][0], out["plain"][0])
+    assert out["kernel"][1] == out["plain"][1] > 0
+
+
+@pytest.mark.cuda
+def test_resolve_wrapper_rejects_bad_arguments(dev):
+    args = list(mc.on(dev, _resolve_case(40, 3, False, False, False, True)))
+    with pytest.raises(ValueError, match="n_walk"):
+        masked.masked_resolve(*(args[:2] + [4] + args[3:]))
+    with pytest.raises(TypeError):
+        masked.masked_resolve(args[0], args[1].to(torch.int64), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        masked.masked_resolve(args[0].transpose(2, 3).contiguous()
+                              .transpose(2, 3), *args[1:])
+    st = args[4]
+    with pytest.raises(ValueError, match="on cpu"):
+        masked.masked_resolve(*args[:4], (st[0].cpu(),) + st[1:],
+                              *args[5:])
+    with pytest.raises(ValueError, match="do not hold"):
+        masked.masked_resolve(*args[:8], 2, *args[9:])
+    with pytest.raises(TypeError):
+        masked.masked_resolve(*args,
+                              torch.zeros((), dtype=torch.int32, device=dev))
+
+
+NAVE_WALK_POSE20 = (7.334, 1.8, 0.3, 1.663184, 0.0)
+
+
+@pytest.mark.cuda
+def test_masked_pass_on_the_replica_equals_the_plain_resolve(dev,
+                                                             monkeypatch):
+    """The Sponza replica at 1920x1080 (CSM, 2048^2 cascades, big_cap
+    2048) from nave_walk's pose 20: the masked pass with the kernel
+    against the same pass with the plain resolve forced on the card:
+    equal depth (bits), ids and peel overflow; the kernel's launches rise
+    by exactly the rounds that ran, and the tested-pixel counts agree."""
+    from vk_renderer_tpu_torch.app.headless import build_scene
+    from vk_renderer_tpu_torch.graph import driver, frame
+    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+    from vk_renderer_tpu_torch.scene.camera import Camera
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    from vk_renderer_tpu_torch.utils import tracing
+    host = build_scene("scene", "assets/sponza_replica/Sponza.glb",
+                       "assets/sponza_replica/pisa_cube.ktx")
+    scene = scene_to_torch(host, dev)
+    settings = RenderSettings(enable_shadows=True, shadow_mode=3,
+                              enable_postprocess=True)
+    cfg = driver.config_from_settings(settings, 1920, 1080,
+                                      shadow_size=2048, big_cap=2048)
+    x, y, z, yaw, pitch = NAVE_WALK_POSE20
+    cam = Camera(position=np.array([x, y, z], np.float32), yaw=yaw,
+                 pitch=pitch)
+    calls = []
+    real_pass = frame._masked_pass
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real_pass(*args, **kw)
+
+    monkeypatch.setattr(frame, "_masked_pass", record)
+    driver.render(scene, cam, settings, cfg)
+    monkeypatch.setattr(frame, "_masked_pass", real_pass)
+    (args, kw), = calls
+    kernel = masked.masked_resolve
+
+    def run():
+        k0 = rk.rasterize_layers_grid.launches
+        r0 = kernel.launches
+        tracing.reset()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = frame._masked_pass(*args, **kw)
+        torch.cuda.synchronize()
+        counts = tracing.counters()
+        tracing.reset()
+        return (out, rk.rasterize_layers_grid.launches - k0,
+                kernel.launches - r0, counts)
+
+    got, rounds, launched, counts_k = run()
+    with monkeypatch.context() as m:
+        m.setattr(masked, "masked_resolve", masked.masked_resolve_plain)
+        want, rounds_p, launched_p, counts_p = run()
+    assert rounds >= 2 and launched == rounds == counts_k["masked.rounds"]
+    assert rounds_p == rounds and launched_p == 0
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert int(got[2]) == int(want[2]) == 0
+    assert counts_k["masked.alpha_px"] == counts_p["masked.alpha_px"] > 0
+    masked_px = (got[1] >= host.n_opaque) & (got[1] < host.n_opaque
+                                            + host.n_masked)
+    assert int(masked_px.sum()) > 100_000

@@ -152,3 +152,50 @@ def test_spans_nest_and_counters_match(make, tail_rounds, absent):
         assert rounds == frames
     assert counts["masked.alpha_px"] > 0
     assert counts["shade.uncertain_px"] >= 0
+
+
+def test_device_counter_adds_reads_and_clears(monkeypatch):
+    """A device-fed counter: None and no allocation with no profiler on;
+    under one, one i64 scalar per (name, device) that the work adds into,
+    summed with the host's counts of the same name by counters(), and
+    cleared by reset()."""
+    tracing.reset()
+    with monkeypatch.context() as m:
+        def refuse(*_, **__):
+            raise AssertionError("a counter was allocated with no "
+                                 "profiler on")
+        m.setattr(torch, "zeros", refuse)
+        assert tracing.device_counter("masked.alpha_px", "cpu") is None
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        c = tracing.device_counter("masked.alpha_px", "cpu")
+        assert c.dtype == torch.int64 and c.shape == () and int(c) == 0
+        c.add_(3)
+        assert tracing.device_counter("masked.alpha_px", "cpu") is c
+        tracing.device_counter("masked.alpha_px", "cpu").add_(4)
+        tracing.count("masked.alpha_px", 5)
+    assert tracing.counters() == {"masked.alpha_px": 12}
+    tracing.reset()
+    assert tracing.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert int(tracing.device_counter("masked.alpha_px", "cpu")) == 0
+    tracing.reset()
+
+
+def test_alpha_tests_add_up_across_frames():
+    """The masked pass feeds masked.alpha_px through its device counter:
+    two frames of one view count twice what one frame counts, and the
+    rounds likewise."""
+    scene, cam, settings, cfg = _setup(_fixture)
+    cfg = dataclasses.replace(cfg, masked_tail_rounds=3)
+    got = []
+    for frames in (1, 2):
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(frames):
+                _render(scene, cam, settings, cfg)
+        got.append(tracing.counters())
+    tracing.reset()
+    assert got[0]["masked.alpha_px"] > 0
+    for key in ("masked.alpha_px", "masked.rounds", "frames"):
+        assert got[1][key] == 2 * got[0][key], key

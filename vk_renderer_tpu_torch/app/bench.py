@@ -30,7 +30,7 @@ step for step and in its order:
 
 Parity renders the camera as the timed loop left it (bench.py's camera
 object, moved by the loop) at 480x272 with 1024^2 shadow maps twice: with
-the kernels, and inside ``plain_kernels()``, which swaps the four kernel
+the kernels, and inside ``plain_kernels()``, which swaps the five kernel
 dispatchers for their plain PyTorch versions.  The kernels equal their
 plain versions, so on the card the PSNR is infinite
 (``utils.image.psnr`` returns ``inf`` for equal images) and
@@ -63,7 +63,7 @@ import torch
 
 from ..graph import driver, frame, profiler
 from ..graph.scenedata import RenderSettings
-from ..ops import post
+from ..ops import masked, post
 from ..ops import raster_kernels as rk
 from ..scene import procedural, sponza_replica
 from ..scene.camera import Camera
@@ -80,19 +80,22 @@ PARITY_W, PARITY_H, PARITY_SHADOW = 480, 272, 1024
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Swap the four kernel dispatchers the frame calls for their plain
+    """Swap the five kernel dispatchers the frame calls for their plain
     PyTorch versions for the body; restore them however it ends."""
     real = (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient)
+            frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient,
+            masked.masked_resolve)
     rk.rasterize_depth_grid = rk.rasterize_depth_grid_plain
     rk.rasterize_layers_grid = rk.rasterize_layers_grid_plain
     frame.POSTPROCESS_REGISTRY["tonemap"] = post.tonemap_plain
     post.gradient = post.gradient_plain
+    masked.masked_resolve = masked.masked_resolve_plain
     try:
         yield
     finally:
         (rk.rasterize_depth_grid, rk.rasterize_layers_grid,
-         frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient) = real
+         frame.POSTPROCESS_REGISTRY["tonemap"], post.gradient,
+         masked.masked_resolve) = real
 
 
 def load_scene(gltf: str | None = None):

@@ -10,7 +10,9 @@ src/vk_engine_run.cpp:68-193):
 
 The raster passes run the hand-written CUDA kernels on the GPU (through
 ops/raster.py), and so do the gradient background and the tonemap
-(ops/post.py); on the CPU each runs its plain PyTorch version.
+(ops/post.py) and the masked pass's alpha resolve (ops/masked.py, one
+launch a k-buffer round); on the CPU each runs its plain PyTorch
+version.
 
 Shadows take the JAX frame's default path: the penumbra classifier
 (shade.classified_shadow_factor over the tables of
@@ -44,7 +46,8 @@ shadow compaction (``shadow_sparse_cap``) leaves unfiltered.
 While a torch profiler records, each stage runs inside a ``vkr.*`` span
 and the frame counts its work (utils/tracing.py): ``frames``,
 ``masked.rounds`` (k-buffer rounds that ran), ``masked.alpha_px`` (the
-alpha test's pixels) and ``shade.uncertain_px`` (the classifier's).
+alpha test's pixels, added up on the device by the resolve) and
+``shade.uncertain_px`` (the classifier's).
 graph/profiler.py reads the spans.
 """
 
@@ -54,7 +57,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..ops import interp, post, raster, shade, skybox
+from ..ops import interp, masked, post, raster, shade, skybox
 from ..ops import setup as rsetup
 from ..ops import texture as tex
 from ..ops.common import cdiv, from_tiles, to_tiles
@@ -568,22 +571,6 @@ def _build_gbuffer(scene, scene_data, tid, rows, vattr, vpos, px=None,
     return g
 
 
-def _winner_alpha(scene, tid, rows, vattr, px, py):
-    """Trilinear albedo-alpha of the given triangle at the given pixel
-    centers (the mesh_pbr.frag:192-193 discard operand) — narrow-row
-    path (frame.py:396-404)."""
-    weights = interp.interpolation_weights_rows(tid, rows[0], rows[1],
-                                                px, py)
-    uvc = (3, 4) if scene.colors is None else (6, 7)   # vattr layout
-    corners = interp.gather_corners(vattr, weights["vidx"])
-    (u, dudx, dudy), (v, dvdx, dvdy) = interp.derivs_from_corners(
-        corners, uvc, weights)
-    aid = scene.mat_tex_ids[:, 0][weights["mat_id"].long()]
-    (alpha,) = tex.sample_trilinear(scene.textures, aid, u, v,
-                                    dudx, dvdx, dudy, dvdy, channels=(3,))
-    return alpha
-
-
 @tracing.spanned("masked")
 def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     """Alpha-cutoff bucket resolved with the k-buffer (frame.py:579-777):
@@ -599,14 +586,15 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     extra layer is the probe: a pending pixel that still finds a
     fragment there counts in ``peel_overflow``.
 
-    The alpha test runs only on the (pending, found) pixels of each layer
-    — the JAX package's 32-pixel cell ladders compact to the same set.
+    Each round's layers are resolved by ``masked.masked_resolve``: on the
+    card one kernel launch a round, on the CPU its plain version, whose
+    alpha test runs only on the (pending, found) pixels of each layer —
+    the JAX package's 32-pixel cell ladders compact to the same set.
     Returns (depth, tid, peel_overflow)."""
     w, h = cfg.width, cfg.height
     th, tw = cfg.tile_h, cfg.tile_w
     n_tris = scene.num_triangles
     rows_t, cols_t = cdiv(h, th), cdiv(w, tw)
-    n_tile = rows_t * cols_t
     dev = depth.device
     rounds = 1 + max(0, cfg.masked_tail_rounds)
     peel_plan = [cfg.masked_peels] + [cfg.masked_tail_peels] * (rounds - 1)
@@ -614,54 +602,24 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
     depth_t = to_tiles(depth, rows_t, cols_t, th, tw, 2.0)
     tid_t = to_tiles(tid, rows_t, cols_t, th, tw, -1)
     bound_t0 = depth_t.contiguous()
-    # frame-extent mask: tile padding never enters the accept domain or
-    # the overflow probe
-    valid_t = to_tiles(torch.ones((h, w), dtype=torch.bool, device=dev),
-                       rows_t, cols_t, th, tw, False)
-    # absolute pixel centers of every tile pixel
-    g = torch.arange(n_tile, device=dev)[:, None, None]
-    yy = torch.arange(th, device=dev)[None, :, None]
-    xx = torch.arange(tw, device=dev)[None, None, :]
-    px_t = ((g % cols_t) * tw + xx).expand(n_tile, th, tw) \
-        .to(torch.float32).reshape(-1) + 0.5
-    py_t = ((g // cols_t) * th + yy).expand(n_tile, th, tw) \
-        .to(torch.float32).reshape(-1) + 0.5
+    # pixels alpha-tested, fed by the resolve while a profiler records
+    tested = tracing.device_counter("masked.alpha_px", dev)
 
-    def accept(lt, dom):
-        sel = torch.nonzero(dom.reshape(-1)).squeeze(1)
-        tracing.count("masked.alpha_px", sel.numel())
-        acc = torch.zeros(dom.numel(), dtype=torch.bool, device=dev)
-        if sel.numel():
-            alpha = _winner_alpha(scene, lt.reshape(-1)[sel], rows, vattr,
-                                  px_t[sel], py_t[sel])
-            acc[sel] = alpha >= 0.5
-        return acc.reshape(dom.shape)
+    def resolve(r, layers, state):
+        with tracing.span("masked.accept"):
+            return masked.masked_resolve(
+                *layers, peel_plan[r], r == rounds - 1, state, scene, rows,
+                vattr, cols_t, w, h, tested)
 
-    def accept_layers(layers, peels_r, state, probe):
-        depth_t, tid_t, pending, deepest = state
-        for k in range(peels_r):
-            with tracing.span("masked.accept"):
-                ld, lt = layers[k]
-                dom = pending & (lt >= 0)
-                acc = accept(lt, dom)
-                depth_t = torch.where(acc, ld, depth_t)
-                tid_t = torch.where(acc, lt, tid_t)
-                pending = dom & ~acc
-                deepest = torch.where(dom, ld, deepest)
-        p = ((pending & (layers[-1][1] >= 0)).sum(dtype=torch.int32)
-             if probe else torch.zeros((), dtype=torch.int32, device=dev))
-        return (depth_t, tid_t, pending, deepest), p
-
-    # round 0: the full record stream
+    # round 0: the full record stream; pending = the frame extent (tile
+    # padding never enters the accept domain or the overflow probe)
     last0 = rounds == 1
     tracing.count("masked.rounds", 1)
     with tracing.span("masked_kraster0"):
-        layers = raster.rasterize_plan_k_tiled(
+        layers = raster.rasterize_plan_k_stacked(
             plan_m, n_tris, peel_plan[0] + (1 if last0 else 0), bound_t0,
             tile_w=tw, tile_h=th)
-    state = (depth_t, tid_t, valid_t,
-             torch.zeros((n_tile, th, tw), dtype=torch.float32, device=dev))
-    state, peel_ovf = accept_layers(layers, peel_plan[0], state, last0)
+    state, peel_ovf = resolve(0, layers, (depth_t, tid_t, None, None))
 
     # continuation rounds: skipped when nothing is pending; a run round
     # re-enters the records only on tiles that still hold pending pixels
@@ -677,11 +635,12 @@ def _masked_pass(scene, cfg: FrameConfig, plan_m, rows, vattr, depth, tid):
             counts = torch.where(
                 pend_tiles.reshape(plan_m["counts"].shape),
                 plan_m["counts"], 0)
-            layers = raster.rasterize_plan_k_tiled(
+            layers = raster.rasterize_plan_k_stacked(
                 plan_m, n_tris, peel_plan[r] + (1 if last else 0), bound_t0,
                 tile_w=tw, tile_h=th, floor_t=floor_t, counts=counts)
-            state, p_r = accept_layers(layers, peel_plan[r], state, last)
-            peel_ovf = peel_ovf + p_r
+            state, peel_ovf = resolve(r, layers, state)
+    if peel_ovf is None:        # the probe round never ran
+        peel_ovf = torch.zeros((), dtype=torch.int32, device=dev)
     depth_t, tid_t = state[0], state[1]
     depth = from_tiles(depth_t, rows_t, cols_t)[:h, :w]
     tid = from_tiles(tid_t, rows_t, cols_t)[:h, :w]
@@ -714,11 +673,11 @@ def _transparent_pass(scene, scene_data, cfg: FrameConfig, plan_t, rows,
     th, tw = cfg.tile_h, cfg.tile_w
     rows_t, cols_t = cdiv(h, th), cdiv(w, tw)
     bound_t = to_tiles(depth, rows_t, cols_t, th, tw, 2.0)
-    layers = raster.rasterize_plan_k_tiled(
+    _, layer_ids = raster.rasterize_plan_k_stacked(
         plan_t, scene.num_triangles, cfg.transparent_peels + 1, bound_t,
         tile_w=tw, tile_h=th)
     tids = [from_tiles(lt, rows_t, cols_t)[:h, :w].reshape(-1)
-            for _, lt in layers]
+            for lt in layer_ids]
     shader = _shader(cfg)
     shadow_mode, shadows_on = _shadow_flags(scene_data, cfg)
     color = [c.reshape(-1) for c in color]

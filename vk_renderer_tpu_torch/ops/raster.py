@@ -4,7 +4,7 @@ Port of the records path of vk_renderer_tpu/ops/raster.py: bin once per
 view (``plan_view_buckets``), build the tile-folded records once
 (``prepare_records``), raster many times — the opaque z-buffer
 (``rasterize_plan``, the CUDA kernel replacing raster_pallas._kernel) and
-the masked k-buffer layers (``rasterize_plan_k_tiled``, the kernel
+the k-buffer layers (``rasterize_plan_k_stacked``, the kernel
 replacing raster_pallas._kernel_k).  The outputs are a visibility buffer:
 depth plus the winning triangle id (-1 where uncovered); shading runs
 deferred afterwards.
@@ -69,28 +69,27 @@ def rasterize_plan(plan: dict, width: int, height: int, sentinel: int,
         sentinel, tile_w=tile_w, tile_h=tile_h)
 
 
-def rasterize_plan_k_tiled(plan: dict, sentinel: int, k_layers: int,
-                           bound_t: torch.Tensor, tile_w: int = 128,
-                           tile_h: int = 32,
-                           floor_t: torch.Tensor | None = None,
-                           counts: torch.Tensor | None = None):
+def rasterize_plan_k_stacked(plan: dict, sentinel: int, k_layers: int,
+                             bound_t: torch.Tensor, tile_w: int = 128,
+                             tile_h: int = 32,
+                             floor_t: torch.Tensor | None = None,
+                             counts: torch.Tensor | None = None):
     """The first ``k_layers`` strict depth-peel layers in TILE space:
-    ``bound_t``/``floor_t`` and the returned layers are [n_tiles, th, tw]
-    (row-major tile order).  Layer k is the LESS_OR_EQUAL later-wins
+    ``bound_t``/``floor_t`` are [n_tiles, th, tw] (row-major tile order)
+    and the layers come back stacked, (depth f32, id i32)
+    [k_layers, n_tiles, th, tw].  Layer k is the LESS_OR_EQUAL later-wins
     winner among fragments with z strictly behind layer k-1 and
     z <= bound (the opaque depth); with ``floor_t``, layer 0 also needs
     z > floor (the masked pass's continuation rounds).  ``counts``
     overrides the plan's per-tile counts (zeroed tiles stream nothing).
-    Returns a list of (depth, id) pairs, nearest first; (2.0, -1) where
-    a layer is empty."""
+    Nearest first; (2.0, -1) where a layer is empty."""
     cnt = plan["counts"] if counts is None else counts
     d, i = rk.rasterize_layers_grid(
         plan["records"], plan["rec_start"], cnt.reshape(-1).contiguous(),
         bound_t.contiguous(),
         floor_t.contiguous() if floor_t is not None else None,
         sentinel, k_layers, tile_w=tile_w, tile_h=tile_h)
-    i = torch.where(i == sentinel, -1, i)
-    return [(d[k], i[k]) for k in range(k_layers)]
+    return d, torch.where(i == sentinel, -1, i)
 
 
 def pad_setup(setup: dict) -> dict:

@@ -5,10 +5,12 @@ records.
 clock it shares with the CUDA runtime calls and the device's kernels, so
 each idle gap and each synchronising call of a trace falls under the
 innermost span open on the host.  ``count(name, n)`` adds ``n`` to a
-counter that ``counters()`` returns and ``reset()`` clears.  With no
-profiler recording both cost one check (``torch.autograd.
-_profiler_enabled``) and record nothing: there is no switch besides
-profiling.
+counter that ``counters()`` returns and ``reset()`` clears;
+``device_counter(name, device)`` hands a kernel the counter's i64 scalar
+on the device, into which the kernel adds.  With no profiler recording
+all three cost one check (``torch.autograd._profiler_enabled``) and
+record nothing (``device_counter`` returns None and the kernel counts
+nothing): there is no switch besides profiling.
 
 A span is an op event (``torch._C._profiler._RecordFunctionFast``), not
 a user annotation (``torch.profiler.record_function``): for a user
@@ -16,9 +18,12 @@ annotation Kineto adds a copy on the device's timeline, which a trace
 reader that has no event kinds (torch 2.11 has none) takes for a kernel.
 The op event costs about a twentieth of the annotation as well.
 
-A counter takes only a value the host already holds (a length after a
-``nonzero``, a loop index): reading a device value would wait for the
-device and change what is measured.
+A counter takes a value the host already holds (a length after a
+``nonzero``, a loop index), or is fed on the device by the kernel that
+does the work: reading a device value inside the frame would wait for
+the device and change what is measured.  ``counters()`` reads the
+device-fed ones once, after the profiled window, and adds them to the
+host's under the same names.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ except ImportError:     # a torch without op events: user annotations
 PREFIX = "vkr."
 _OFF = contextlib.nullcontext()
 _counts: dict[str, int] = {}
+# (name, device) -> the i64 scalar a kernel adds into
+_device_counts: dict[tuple[str, str], torch.Tensor] = {}
 
 
 def span(name: str):
@@ -63,11 +70,30 @@ def count(name: str, n: int) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def device_counter(name: str, device) -> torch.Tensor | None:
+    """While a profiler records, counter ``name``'s i64 scalar on
+    ``device`` (zeroed when first asked for), which a kernel adds into
+    without the host waiting; None otherwise."""
+    if not torch.autograd._profiler_enabled():
+        return None
+    key = (name, str(torch.device(device)))
+    t = _device_counts.get(key)
+    if t is None:
+        t = _device_counts[key] = torch.zeros((), dtype=torch.int64,
+                                              device=device)
+    return t
+
+
 def counters() -> dict[str, int]:
-    """A copy of the counters."""
-    return dict(_counts)
+    """A copy of the counters, the device-fed ones read (a wait for the
+    device: call it after the profiled window) and added in."""
+    out = dict(_counts)
+    for (name, _), t in _device_counts.items():
+        out[name] = out.get(name, 0) + int(t)
+    return out
 
 
 def reset() -> None:
-    """Clear the counters."""
+    """Clear the counters, the device-fed ones too."""
     _counts.clear()
+    _device_counts.clear()
