@@ -276,8 +276,9 @@ def test_gradient_kernel_row_offset(dev, row0, w):
 def test_strips_on_the_card_equal_the_cpu_strips(dev, monkeypatch):
     """The cube with shadows at 256x128 as 2 strips
     (parallel/sharded.py) on the card and on the CPU: every depth raster
-    of the frame (each strip's shadow cascade rows and camera rows) gives
-    the same depth bits and triangle ids on both."""
+    of the frame (each strip's one raster of all its cascade rows, and
+    its camera rows) gives the same depth bits and triangle ids on
+    both."""
     from vk_renderer_tpu_torch.graph import driver, frame
     from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
     from vk_renderer_tpu_torch.parallel import sharded
@@ -306,11 +307,49 @@ def test_strips_on_the_card_equal_the_cpu_strips(dev, monkeypatch):
         out = sharded.render_frame_sharded(scene, sd, st, cfg, n=2)
         assert frame.stats_from_vec(out["stats_vec"])["bin_overflow"] == 0
     cpu, card = rasters["cpu"], rasters[str(dev)]
-    # per strip: its rows of every cascade, then its camera rows
-    assert len(cpu) == len(card) == 2 * (cfg.shadow_cascades + 1)
+    # per strip: its rows of every cascade in one raster, then its camera
+    # rows
+    assert len(cpu) == len(card) == 2 * 2
     for (cd, ci), (gd, gi) in zip(cpu, card):
         assert torch.equal(cd.view(torch.int32), gd.view(torch.int32))
         assert torch.equal(ci, gi)
+
+
+@pytest.mark.cuda
+def test_shadow_pass_runs_without_a_host_sync(dev):
+    """The cube's four 256^2 cascades on the card: the batched shadow
+    pass (setup, binning, records and the one depth raster of every
+    cascade) runs under ``set_sync_debug_mode("error")``, so no op in it
+    waits for the device, and its pair-packed maps and bin overflow equal
+    the CPU's bit for bit."""
+    from vk_renderer_tpu_torch.graph import driver, frame
+    from vk_renderer_tpu_torch.graph.scenedata import RenderSettings
+    from vk_renderer_tpu_torch.scene import procedural
+    from vk_renderer_tpu_torch.scene.camera import Camera
+    from vk_renderer_tpu_torch.scene.types import scene_to_torch
+    host = procedural.build_cube_scene().build()
+    settings = RenderSettings(enable_shadows=True, shadow_mode=3)
+    cfg = driver.config_from_settings(settings, 256, 128, shadow_size=256,
+                                      shadow_cap=256)
+    got = {}
+    for where in ("cpu", dev):
+        scene = scene_to_torch(host, where)
+        sd, _ = driver.frame_inputs(scene, Camera(), settings, cfg)
+        if where == dev:
+            frame.shadow_pass(scene, sd, cfg)       # builds the kernels
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                maps, ovf = frame.shadow_pass(scene, sd, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            maps, ovf = frame.shadow_pass(scene, sd, cfg)
+        got[str(where)] = (maps.cpu(), int(ovf))
+    (cmaps, covf), (gmaps, govf) = got["cpu"], got[str(dev)]
+    assert cmaps.shape == (frame.NUM_CASCADES, 256, 256)
+    assert torch.equal(cmaps, gmaps)
+    assert covf == govf == 0
 
 
 @pytest.mark.cuda

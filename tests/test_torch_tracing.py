@@ -29,10 +29,10 @@ FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
 # span -> the spans that may hold it (None: no program span)
 PARENTS = {
     "inputs": {None}, "frame": {None},
-    "shadow": {"frame"}, "shadow.cascade": {"shadow"},
+    "shadow": {"frame"},
     "classifier": {"frame"}, "view": {"frame"},
-    "setup": {"view"}, "bin": {"view", "shadow.cascade"},
-    "records": {"view", "shadow.cascade"}, "raster_opaque": {"view"},
+    "setup": {"view"}, "bin": {"view", "shadow"},
+    "records": {"view", "shadow"}, "raster_opaque": {"view"},
     "masked": {"view"}, "masked_kraster0": {"masked"},
     "masked.accept": {"masked", "masked.tail"}, "masked.tail": {"masked"},
     "gbuffer": {"view", "transparent"}, "shade": {"view"},
@@ -138,11 +138,12 @@ def test_spans_nest_and_counters_match(make, tail_rounds, absent):
     for name, parent in seen:
         assert parent in PARENTS[name], (name, parent)
     per_frame = {name: sum(1 for n, _ in seen if n == name) / frames
-                 for name in ("frame", "inputs", "shadow.cascade")}
-    assert per_frame == {"frame": 1, "inputs": 1,
-                         "shadow.cascade": frame.NUM_CASCADES}
+                 for name in ("frame", "inputs", "shadow")}
+    assert per_frame == {"frame": 1, "inputs": 1, "shadow": 1}
 
     assert counts["frames"] == frames
+    # the cascades render as one batch a frame, counted once per call
+    assert counts["shadow.cascades"] == frames * frame.NUM_CASCADES
     if "masked" in absent:
         assert not {"masked.rounds", "masked.alpha_px"} & set(counts)
         return

@@ -45,8 +45,9 @@ shadow compaction (``shadow_sparse_cap``) leaves unfiltered.
 
 While a torch profiler records, each stage runs inside a ``vkr.*`` span
 and the frame counts its work (utils/tracing.py): ``frames``,
-``masked.rounds`` (k-buffer rounds that ran), ``masked.alpha_px`` (the
-alpha test's pixels, added up on the device by the resolve) and
+``shadow.cascades`` (cascades the shadow pass rendered, in one batch a
+call), ``masked.rounds`` (k-buffer rounds that ran), ``masked.alpha_px``
+(the alpha test's pixels, added up on the device by the resolve) and
 ``shade.uncertain_px`` (the classifier's).
 graph/profiler.py reads the spans.
 """
@@ -218,37 +219,48 @@ def render_shadow_maps(scene, world_pos, tri_visible, light_viewproj,
     With ``out_h`` each cascade is a shadow_size x out_h strip, rastered
     through the row-remapped light matrices the caller passes (the
     sharded path, parallel/sharded.py).  Returns (pair-packed
-    i32[L, out_h, S] maps, bin overflow)."""
+    i32[L, out_h, S] maps, bin overflow).
+
+    The L cascades run as ONE chain over a leading cascade axis, with no
+    host sync: the light transform, setup, binning and records of all
+    of them at once, then one depth raster over their tiles stacked
+    row-major (cascade c owns tile rows [c * rows, (c + 1) * rows) and
+    records [c * rec_cap, (c + 1) * rec_cap)).  Every cascade keeps its
+    own triangle ids and tile origins, so each map equals the one a
+    cascade rendered alone, bit for bit."""
     s = cfg.shadow_size
     out_h = s if out_h is None else out_h
     n_active = min(cfg.shadow_cascades, light_viewproj.shape[0])
     n_tris = scene.num_triangles
-    # gather the triangle corners' WORLD positions once; each cascade only
-    # re-runs the elementwise light-matrix transform on them
-    cw = rsetup.gather_corner_positions(world_pos, scene.tris)
-    maps = []
-    overflow = torch.zeros((), dtype=torch.int32, device=world_pos[0].device)
-    for i in range(n_active):
-        with tracing.span("shadow.cascade"):
-            lvp = light_viewproj[i]
-            corn = tuple([lvp[r, 0] * cw[0][k] + lvp[r, 1] * cw[1][k]
-                          + lvp[r, 2] * cw[2][k] + lvp[r, 3]
-                          for k in range(3)] for r in range(4))
-            st = rsetup.triangle_setup(None, None, tri_visible, s, out_h,
-                                       cull=rsetup.CULL_FRONT, corners=corn)
-            (plan,) = raster.plan_view_buckets(
-                st, ((0, n_tris),), s, out_h, cfg.tile_w, cfg.tile_h,
-                (cfg.shadow_cap,), (cfg.rec_shadow,),
-                big_cap=cfg.shadow_big_cap, max_span=cfg.shadow_max_span)
-            padded = raster.pad_setup(st)
-            plan = raster.prepare_records(plan, padded, st["bbox"], s,
-                                          cfg.tile_w, cfg.tile_h)
-            d, _ = raster.rasterize_plan(plan, s, out_h, n_tris,
-                                         tile_w=cfg.tile_w,
-                                         tile_h=cfg.tile_h)
-            maps.append(d)
-            overflow = overflow + plan["overflow"]
-    return tex.pack_shadow_maps(torch.stack(maps)), overflow
+    tracing.count("shadow.cascades", n_active)
+    # the triangle corners' WORLD positions, gathered once; the light
+    # transform runs over [L, row, corner, T]
+    cx, cy, cz = rsetup.gather_corner_positions(world_pos, scene.tris)
+    m = light_viewproj[:n_active, :, :, None, None]
+    clip = m[:, :, 0] * cx + m[:, :, 1] * cy + m[:, :, 2] * cz + m[:, :, 3]
+    corn = tuple([clip[:, r, k] for k in range(3)] for r in range(4))
+    st = rsetup.triangle_setup(None, None, tri_visible, s, out_h,
+                               cull=rsetup.CULL_FRONT, corners=corn)
+    (plan,) = raster.plan_view_buckets(
+        st, ((0, n_tris),), s, out_h, cfg.tile_w, cfg.tile_h,
+        (cfg.shadow_cap,), (cfg.rec_shadow,), big_cap=cfg.shadow_big_cap,
+        max_span=cfg.shadow_max_span)
+    plan = raster.prepare_records(plan, raster.pad_setup(st), st["bbox"], s,
+                                  cfg.tile_w, cfg.tile_h)
+    records = plan["records"]
+    rows, cols = plan["counts"].shape[1:]
+    rec_cap = records.shape[1]
+    first = torch.arange(0, n_active * rec_cap, rec_cap, dtype=torch.int32,
+                         device=records.device)
+    stacked = {"records": records.reshape(-1, *records.shape[2:]),
+               "rec_start": (plan["rec_start"] + first[:, None]).reshape(-1),
+               "counts": plan["counts"].reshape(n_active * rows, cols)}
+    d, _ = raster.rasterize_plan(stacked, s, n_active * rows * cfg.tile_h,
+                                 n_tris, tile_w=cfg.tile_w,
+                                 tile_h=cfg.tile_h)
+    maps = d.reshape(n_active, rows * cfg.tile_h, s)[:, :out_h]
+    return (tex.pack_shadow_maps(maps),
+            plan["overflow"].sum(dtype=torch.int32))
 
 
 def shadow_pass(scene, scene_data: dict, cfg: FrameConfig,

@@ -17,6 +17,7 @@ CPU path runs the kernels' plain PyTorch versions over the same records
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..utils import tracing
 from . import binning
@@ -32,7 +33,7 @@ def plan_view_buckets(st: dict, bounds, width: int, height: int,
     per-bucket plan dicts (occupancy-packed records).  ``rec_caps`` are
     record-count safety caps, shrunk to the scene's worst-case pair
     count (raster.py:79-86)."""
-    n_tris = st["valid"].shape[0]
+    n_tris = st["valid"].shape[-1]
     n_tiles = cdiv(width, tile_w) * cdiv(height, tile_h)
     # worst case: every pair lands in a distinct partial chunk (bbox
     # pairs + exact big pairs)
@@ -93,11 +94,11 @@ def rasterize_plan_k_stacked(plan: dict, sentinel: int, k_layers: int,
 
 
 def pad_setup(setup: dict) -> dict:
-    """Append the all-zero sentinel entry so slot gathers at id==T are
-    harmless (zero edges fail coverage everywhere).  Planar in/out."""
+    """Append the all-zero sentinel entry to each view's planes ([T] or
+    [L, T] -> [..., T + 1]) so slot gathers at id==T are harmless (zero
+    edges fail coverage everywhere).  Planar in/out."""
     def pad(p):
-        return torch.cat([p, torch.zeros((1,), dtype=p.dtype,
-                                         device=p.device)])
+        return F.pad(p, (0, 1))
 
     return {
         "edge": [pad(p) for p in setup["edge"]],

@@ -46,6 +46,7 @@ import functools
 import shutil
 
 import torch
+import torch.nn.functional as F
 
 from .common import from_tiles, to_tiles
 
@@ -67,28 +68,32 @@ def build_records(setup_padded: dict, bbox, rec_tri: torch.Tensor,
     setup_padded: planar setup with the zero sentinel row (raster.pad_setup)
     bbox: the UNPADDED planar bbox from triangle_setup (y0/y1 used)
     rec_tri/rec_tile: from binning.bin_buckets_packed
-    Returns f32[rec_cap, (CHUNK*F_FIELDS)//128, 128]."""
+    Planes [T] with rec_tri [S] give f32[rec_cap, (CHUNK*F_FIELDS)//128,
+    128]; planes [L, T] with rec_tri [L, S] give L views' records at once,
+    f32[L, rec_cap, ...], each slot carrying its view-local triangle id
+    and folded against its view-local tile origin."""
     e = setup_padded["edge"]
     zl = setup_padded["zlin"]
     anc = setup_padded["anchor"]
     f32 = torch.float32
-    n_pad = e[0].shape[0]
+    n_pad = e[0].shape[-1]
     if n_pad - 1 > MAX_TRI:
         raise ValueError(f"{n_pad - 1} triangles exceed the records' "
                          f"packed-id range ({MAX_TRI})")
-    zero = torch.zeros((1,), dtype=f32, device=e[0].device)
-    by0 = torch.cat([bbox[1], zero])
-    by1 = torch.cat([bbox[3], zero])
-
     idx = rec_tri.long()
-    a0, b0, c0 = e[0][idx], e[1][idx], e[2][idx]
-    a1, b1, c1 = e[3][idx], e[4][idx], e[5][idx]
-    a2, b2, c2 = e[6][idx], e[7][idx], e[8][idx]
-    za, zbp, zc = zl[0][idx], zl[1][idx], zl[2][idx]
-    ax, ay = anc[0][idx], anc[1][idx]
-    y0, y1 = by0[idx], by1[idx]
 
-    slot_tile = torch.repeat_interleave(rec_tile, CHUNK)
+    def g(plane):
+        return torch.gather(plane, -1, idx)
+
+    a0, b0, c0 = g(e[0]), g(e[1]), g(e[2])
+    a1, b1, c1 = g(e[3]), g(e[4]), g(e[5])
+    a2, b2, c2 = g(e[6]), g(e[7]), g(e[8])
+    za, zbp, zc = g(zl[0]), g(zl[1]), g(zl[2])
+    ax, ay = g(anc[0]), g(anc[1])
+    y0, y1 = g(F.pad(bbox[1], (0, 1))), g(F.pad(bbox[3], (0, 1)))
+
+    slot_tile = rec_tile[..., None].expand(*rec_tile.shape, CHUNK).reshape(
+        idx.shape)
     ty0i = (slot_tile // cols) * tile_h
     tx0 = ((slot_tile % cols) * tile_w).to(f32)
     ty0 = ty0i.to(f32)
@@ -113,7 +118,7 @@ def build_records(setup_padded: dict, bbox, rec_tri: torch.Tensor,
     pad = torch.zeros_like(k0)
     rec = torch.stack([a0, b0, k0, a1, b1, k1, a2, b2, k2, za, zbp, kz,
                        f12, f13, pad, pad], dim=-1)
-    return rec.reshape(-1, (CHUNK * F_FIELDS) // 128, 128)
+    return rec.reshape(*idx.shape[:-1], -1, (CHUNK * F_FIELDS) // 128, 128)
 
 
 # ---------------------------------------------------------------------------

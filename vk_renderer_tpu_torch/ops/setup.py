@@ -74,12 +74,13 @@ def cull_objects(obj_world: torch.Tensor, obj_bounds: torch.Tensor,
     return torch.all(dist >= -radius[:, None], dim=1)
 
 
-def gather_corner_positions(coords, tris):
-    """Per-corner gathers of per-vertex planar coords: coords (cx, cy, cz[,
-    cw]) over V, tris (i0, i1, i2) over T -> per-component corner lists
-    over T.  Gather once and reuse across views that share geometry (the
-    4 shadow cascades re-transform the same corners)."""
-    return tuple([comp[i] for i in tris] for comp in coords)
+def gather_corner_positions(coords, tris) -> torch.Tensor:
+    """One gather of per-vertex planar coords at every triangle corner:
+    coords (cx, cy, cz[, cw]) over V, tris (i0, i1, i2) over T ->
+    f32[C, 3, T] (component, corner, triangle).  Gather once and reuse
+    across views that share geometry (the shadow cascades transform the
+    same corners)."""
+    return torch.stack(tuple(coords))[:, torch.stack(tuple(tris))]
 
 
 def triangle_setup(clip, tris, tri_valid: torch.Tensor, width: int,
@@ -87,8 +88,9 @@ def triangle_setup(clip, tris, tri_valid: torch.Tensor, width: int,
     """Clipless 2DH setup.  clip: (cx,cy,cz,cw) planar over V;
     tris: (i0,i1,i2) planar over T.  ``tri_valid`` folds in the
     frustum-cull mask (and bucket masks).  ``corners``: optional
-    pre-gathered per-corner clip coords (x, y, z, w), each a list of 3 [T]
-    planes (see gather_corner_positions)."""
+    pre-gathered per-corner clip coords (x, y, z, w), each a list of 3
+    planes, [T] or [L, T] for L views at once (every step is elementwise,
+    so the outputs then carry the leading L)."""
     if corners is not None:
         x, y, z, w = corners
     else:
